@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py        # from the root of a checkout; needs one card
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+  0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+  1. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
+  2. kernels: each hand-written kernel against its plain PyTorch version at
+     the main path's shapes, in bf16 and f32, with kernel, plain and library
+     device times (``Timer``) and the card's bound for the same work;
+  3. serving: granite-8b at full width and depth in bf16, random weights
+     from a seeded generator, 8 requests through ``ContinuousBatcher``
+     (4 slots, cache 1024); launch counters must equal the expected counts;
+     then a profile of one prefill and a few decode steps by kernel;
+  4. the model against the plain CPU reference: granite-8b at full width cut
+     to 2 layers, prefill of a 128-token prompt plus 4 decode steps, on the
+     card through the kernels and on the CPU through the plain versions.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense), at its 700 W limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
+SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing helpers
+# ---------------------------------------------------------------------------
+class Timer:
+    """Mean device time per call of a function, without the host's launch overhead.
+
+    A sleep kernel holds the device while the host enqueues ``iters`` calls
+    between two CUDA events, so the events see the calls back to back. The
+    calls rotate over ``COPIES`` sets of inputs, which at the main path's
+    shapes together exceed the 50 MB L2, so each call finds its inputs cold.
+    If the host takes longer to enqueue than the sleep lasts, the time is
+    flagged ``host-bound`` (it then includes host gaps).
+    """
+
+    COPIES = 4
+    SLEEP_CYCLES = 200_000_000
+
+    def __init__(self, torch):
+        self.torch = torch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(self.SLEEP_CYCLES)
+        end.record()
+        torch.cuda.synchronize()
+        self.sleep_ms = start.elapsed_time(end)
+
+    def ms(self, fns, iters: int = 24):
+        """(ms per call, host_bound) for calls cycling over ``fns``."""
+        torch = self.torch
+        for fn in fns:  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(self.SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters, host_ms > self.sleep_ms
+
+
+def bound_ms(nbytes: float, flops: float, op_type: str):
+    """Least time for the work: bytes over peak bandwidth or operations over the peak
+    rate of their type, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def phase_card(torch) -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(smi.splitlines()[0])  # name, power limit: as nvidia-smi prints them
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    name = smi.splitlines()[0]
+    variant = "the SXM part" if "HBM3" in name else "the SXM part, NOT this variant: bounds too low"
+    log(f"[card] bounds use {variant}'s peaks: {PEAK_BYTES_PER_S / 1e12} TB/s, "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16, {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return name
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    records = _build.build_all(verbose=True)
+    for r in records.values():
+        how = "cache hit" if r.cached else f"nvcc {r.seconds:.2f} s"
+        log(f"[build] {r.name}: {how} -> {r.path.name}")
+    log(f"[build] total {time.perf_counter() - t0:.2f} s")
+
+
+def _check(name, got, want, dtype_name):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype_name]
+    ok = bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+    log(f"[kernels] {name}: max_abs_err {err:.3e} (tolerance rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_kernels(torch, timer: Timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import rmsnorm as krms
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    # the yardsticks: F.rms_norm (torch >= 2.4), SDPA with enable_gqa (torch >= 2.5)
+    has_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
+
+    def record(entry, main: bool, name, case, make, nbytes, flops, dtype_name, op_type):
+        """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them."""
+        sets = [make() for _ in range(Timer.COPIES)]
+        kernel_fn, plain_fn, lib_fn = sets[0]
+        out = kernel_fn()
+        torch.cuda.synchronize()
+        err = _check(f"{name} {case} {dtype_name}", out, plain_fn(), dtype_name)
+        (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
+        l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
+        b_ms, b_by = bound_ms(nbytes, flops, op_type)
+        flag = lambda hb: " (host-bound)" if hb else ""
+        log(f"[kernels] {name} {case} {dtype_name}: kernel_ms {k_ms:.5f}{flag(k_hb)} "
+            f"plain_ms {p_ms:.5f}{flag(p_hb)} "
+            f"library_ms {('%.5f' % l_ms) if l_ms is not None else 'null'}{flag(l_hb)} "
+            f"bound_ms {b_ms:.5f} = {1e3 * b_ms:.2f} us ({b_by}: {nbytes / 1e6:.3f} MB, "
+            f"{flops / 1e9:.4f} GFLOP)")
+        if main:
+            entry.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=l_ms)
+
+    # --- rmsnorm: prefill [1, 1024, 4096] and decode [4, 4096] ---
+    e_rms = dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                 replaces="src/repro/kernels/rmsnorm.py:25")
+    lib_rms = getattr(F, "rms_norm", None)
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for shape in ((1, 1024, 4096), (4, 4096)):
+            def make(shape=shape, dt=dt):
+                x, s = rnd(shape, dt), rnd(shape[-1:], dt)
+                return (lambda: krms.rmsnorm(x, s, 1e-5), lambda: krms.plain(x, s, 1e-5),
+                        (lambda: lib_rms(x, (shape[-1],), s, 1e-5)) if lib_rms else None)
+
+            numel, size = int(np.prod(shape)), torch.tensor([], dtype=dt).element_size()
+            record(e_rms, dtn == "bfloat16" and shape == (1, 1024, 4096), "rmsnorm", str(shape),
+                   make, (2 * numel + shape[-1]) * size, 4.0 * numel, dtn,
+                   "float32")  # the statistics are float32 arithmetic
+    rows.append(e_rms)
+
+    # --- flash attention: granite prefill, plus a ragged Sq and a window ---
+    e_fl = dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:105")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for sq, window in ((1024, 0), (1000, 0), (1024, 256)):
+            qp, kp = torch.arange(sq, device="cuda")[:, None], torch.arange(sq, device="cuda")[None]
+            allowed = (kp <= qp) & ((qp - kp < window) if window > 0 else True)
+
+            def make(sq=sq, window=window, dt=dt, allowed=allowed):
+                q, k, v = rnd((1, sq, 32, 128), dt), rnd((1, sq, 8, 128), dt), rnd((1, sq, 8, 128), dt)
+
+                def lib():
+                    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                    if window > 0:
+                        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                              enable_gqa=True)
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                return (lambda: kfl.flash_attention(q, k, v, causal=True, window=window),
+                        lambda: kfl.plain(q, k, v, causal=True, window=window),
+                        lib if has_gqa else None)
+
+            size = torch.tensor([], dtype=dt).element_size()
+            nbytes = (2 * sq * 32 * 128 + 2 * sq * 8 * 128) * size  # q and out, k and v
+            flops = 4.0 * 32 * 128 * int(allowed.sum())            # QK^T and PV on allowed pairs
+            record(e_fl, dtn == "bfloat16" and sq == 1024 and window == 0, "flash_attention",
+                   f"q[1,{sq},32,128] kv[1,{sq},8,128] causal window={window}",
+                   make, nbytes, flops, dtn, dtn)
+    rows.append(e_fl)
+
+    # --- decode attention: B 4, S 1024, partly filled slots (-1 empty) ---
+    e_dec = dict(name="decode_attention", route="cuda",
+                 source="src/repro_torch/csrc/decode_attention.cu",
+                 replaces="src/repro/kernels/decode_attention.py:85")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for window in (0, 128):
+            b, s = 4, 1024
+            fill = torch.tensor([1024, 700, 300, 64], device="cuda", dtype=torch.int32)
+            ar = torch.arange(s, device="cuda", dtype=torch.int32)[None]
+            slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
+            slot[1, 5:9] = -1  # holes inside a filled range
+            cur = (fill - 1).to(torch.int32)
+            valid = (slot >= 0) & (slot <= cur[:, None])
+            if window > 0:
+                valid &= cur[:, None] - slot < window
+
+            def make(window=window, dt=dt, valid=valid):
+                q, kc, vc = rnd((b, 32, 128), dt), rnd((b, s, 8, 128), dt), rnd((b, s, 8, 128), dt)
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                        attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+                return (lambda: kdec.decode_attention(q, kc, vc, slot, cur, window=window),
+                        lambda: kdec.plain(q, kc, vc, slot, cur, window=window),
+                        lib if has_gqa else None)
+
+            n_valid = int(valid.sum())  # this run's data: only valid slots need K and V
+            size = torch.tensor([], dtype=dt).element_size()
+            nbytes = 2 * n_valid * 8 * 128 * size + 2 * b * 32 * 128 * size + (b * s + b) * 4
+            record(e_dec, dtn == "bfloat16" and window == 0, "decode_attention",
+                   f"q[4,32,128] cache[4,1024,8,128] window={window} valid_slots={n_valid}",
+                   make, nbytes, 4.0 * 32 * 128 * n_valid, dtn, dtn)
+    rows.append(e_dec)
+    return rows
+
+
+def phase_serve(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+
+    cfg = get_config("granite-8b")
+    api = build(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {api.param_count() / 1e9:.3f} B params, "
+        f"{api.param_bytes() / 1e9:.2f} GB bf16, init {time.perf_counter() - t0:.2f} s")
+
+    decode_s = [0.0]
+
+    def timed_decode(p, c, t):
+        t1 = time.perf_counter()
+        out = api.decode_step(p, c, t)
+        torch.cuda.synchronize()
+        decode_s[0] += time.perf_counter() - t1
+        return out
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+
+    # warm-up (cuBLAS handles, allocator): one short request on its own batcher
+    warm = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    warm.submit(Request(-1, prompts[0][:16], max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+
+    batcher = ContinuousBatcher(dataclasses.replace(api, decode_step=timed_decode), params,
+                                num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    reqs = [Request(i, p, max_new_tokens=SERVE_NEW, arrival=t_start) for i, p in enumerate(prompts)]
+    for r in reqs:
+        batcher.submit(r)
+    decode_tokens = 0
+    while batcher.waiting or batcher.active:
+        decode_tokens += len(batcher.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = ops.launch_counts()
+
+    for r in reqs:
+        toks = np.asarray(r.generated)
+        if len(toks) != SERVE_NEW or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: bad output {r.generated}")
+        log(f"[serve] request {r.rid}: prompt {len(r.prompt)} tokens, TTFT "
+            f"{1e3 * (r.first_token_at - t_start):.1f} ms, first tokens {r.generated[:4]}")
+    prefills, steps = len(reqs), batcher.steps
+    expected = {"rmsnorm": (2 * cfg.num_layers + 1) * (prefills + steps),
+                "flash_attention": cfg.num_layers * prefills,
+                "decode_attention": cfg.num_layers * steps}
+    log(f"[serve] {prefills} prefills, {steps} decode steps, {decode_tokens} decode tokens in "
+        f"{decode_s[0]:.3f} s of decode steps: {decode_tokens / decode_s[0]:.1f} tokens/s, "
+        f"{1e3 * decode_s[0] / steps:.2f} ms/step; wall {wall:.3f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, n in expected.items():
+        log(f"[serve] launches {name}: {counts[name]} (expected {n})")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+
+    # where a prefill's and a decode step's device time goes (after the counts were read)
+    prompt = prompts[0]
+    tokens = torch.tensor([prompt + [0] * (SERVE_CACHE - len(prompt))], dtype=torch.int32,
+                          device="cuda")
+    plens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    step_tokens = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    profile_breakdown(torch, "prefill", 1, lambda: api.prefill(params, tokens, plens))
+    profile_breakdown(torch, "decode step", 4,
+                      lambda: api.decode_step(params, batcher.cache, step_tokens))
+    return counts
+
+
+KERNEL_GROUPS = (("rmsnorm kernel", ("rmsnorm_kernel",)), ("flash kernel", ("flash_kernel",)),
+                 ("decode kernel", ("decode_kernel",)),
+                 ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def profile_breakdown(torch, what: str, reps: int, fn):
+    """Device time of ``reps`` calls of ``fn`` by kernel group (torch.profiler), and
+    the share of the wall time the device was idle under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    groups, launches = {}, {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        name = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
+        groups[name] = groups.get(name, 0.0) + us / 1e3 / reps
+        launches[name] = launches.get(name, 0) + ev.count / reps
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log(f"[profile] {what}: the profiler recorded no device kernels")
+        return
+    parts = ", ".join(f"{g} {ms:.3f} ms ({launches[g]:.0f} launches)"
+                      for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms under the profiler, device busy {busy:.3f} ms, "
+        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; {parts}")
+
+
+def phase_reference(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build
+
+    cfg = get_config("granite-8b").replace(num_layers=2)
+    rng = np.random.default_rng(1)
+    plen, n_dec, pad = 128, 4, 8
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, plen + pad)), dtype=torch.int32)
+    plens = torch.tensor([plen], dtype=torch.int32)
+    gpu = build(cfg, device="cuda")
+    params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build(cfg, device="cpu")
+    params_cpu = tree_map(lambda t: t.float().cpu(), params)
+
+    forced = rng.integers(0, cfg.vocab_size, size=n_dec).tolist()  # teacher-forced tokens
+
+    def run(api, p, device, dtype):
+        p = tree_map(lambda t: t.to(device=device, dtype=dtype), p)
+        logits, cache = api.prefill(p, prompt.to(device), plens.to(device))
+        outs = [logits.float().cpu()]
+        for tok in forced:
+            logits, cache = api.decode_step(p, cache, torch.tensor([tok], dtype=torch.int32, device=device))
+            outs.append(logits.float().cpu())
+        return torch.cat(outs)
+
+    with torch.inference_mode():
+        want = run(cpu, params_cpu, "cpu", torch.float32)
+        for dtn, dt, rtol, atol in (("float32", torch.float32, 2e-3, 2e-3),
+                                    ("bfloat16", torch.bfloat16, 5e-2, 5e-1)):
+            got = run(gpu, params, "cuda", dt)
+            err = (got - want).abs().max().item()
+            top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all()) and top1 >= 0.6
+            log(f"[reference] 2-layer full width, card {dtn} via kernels vs CPU float32 plain: "
+                f"max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), top-1 agreement "
+                f"{top1:.2f} over {got.shape[0]} positions (need >= 0.6) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"2-layer model on the card disagrees with the CPU ({dtn})")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    t0 = time.perf_counter()
+    card = phase_card(torch)
+    phase_build()
+    timer = Timer(torch)
+    kernels = phase_kernels(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    counts = phase_serve(torch)
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+    torch.cuda.empty_cache()
+    phase_reference(torch)
+    log(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

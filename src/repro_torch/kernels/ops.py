@@ -1,0 +1,46 @@
+"""Kernel entry points the model calls: one per kernel.
+
+A tensor on the CPU goes to the kernel's plain PyTorch version. A CUDA
+tensor goes to the hand-written kernel, which launches or raises; there is
+no fallback from one to the other. Each kernel module counts its launches.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rmsnorm as _rms
+
+_KERNELS = {"rmsnorm": _rms, "flash_attention": _flash, "decode_attention": _decode}
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-5):
+    if x.device.type == "cpu":
+        return _rms.plain(x, scale, eps)
+    return _rms.rmsnorm(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None):
+    if q.device.type == "cpu":
+        return _flash.plain(q, k, v, causal=causal, window=window, scale=scale)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window: int = 0,
+                     scale: Optional[float] = None):
+    if q.device.type == "cpu":
+        return _decode.plain(q, k_cache, v_cache, slot_pos, cur_pos, window=window, scale=scale)
+    return _decode.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, window=window,
+                                    scale=scale)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0

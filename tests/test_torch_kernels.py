@@ -1,0 +1,130 @@
+"""Port kernels' plain versions against the JAX package's Pallas kernels.
+
+The same numpy-seeded inputs go through ``repro.kernels.ops`` (Pallas, in
+interpret mode) and ``repro_torch.kernels.ops`` on CPU tensors (the plain
+PyTorch versions), over the sweeps of ``tests/test_kernels.py``. The CUDA
+kernels themselves run only on the card (``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.bridge import to_numpy, to_tensor  # noqa: E402
+from repro_torch.kernels import decode_attention as kdec  # noqa: E402
+from repro_torch.kernels import flash_attention as kfl  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as krms  # noqa: E402
+
+DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _tol(dtype):
+    return dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else dict(rtol=2e-3, atol=2e-3)
+
+
+def _pair(rng, shape, dtype):
+    """One numpy-seeded array as a JAX array and a CPU tensor with the same bits."""
+    j = jnp.asarray(rng.standard_normal(shape).astype(np.float32), DTYPES[dtype])
+    return j, to_tensor(np.asarray(j), "cpu")
+
+
+@pytest.fixture(autouse=True)
+def _counters_stay_zero():
+    """The plain path launches nothing: every counter stays at 0."""
+    ops.reset_launch_counts()
+    yield
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+
+
+# ------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 37, 64), (3, 5, 7, 32)])
+def test_rmsnorm_plain_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(0)
+    xj, xt = _pair(rng, shape, dtype)
+    sj, st = _pair(rng, shape[-1:], dtype)
+    want = jops.rmsnorm(xj, sj, interpret=True, use_pallas=True)
+    got = ops.rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol(dtype))
+
+
+# ------------------------------------------------------ flash attention
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,hq,hkv,dh,causal,window", [
+    (64, 64, 4, 2, 32, True, 0),
+    (100, 100, 6, 2, 16, True, 0),     # non-multiple of block
+    (128, 128, 8, 2, 64, True, 48),    # sliding window
+    (64, 96, 4, 2, 32, False, 0),      # cross attention
+    (32, 32, 4, 4, 16, True, 0),       # MHA
+])
+def test_flash_attention_plain_matches_pallas(sq, sk, hq, hkv, dh, causal, window, dtype):
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(rng, (2, sq, hq, dh), dtype)
+    kj, kt = _pair(rng, (2, sk, hkv, dh), dtype)
+    vj, vt = _pair(rng, (2, sk, hkv, dh), dtype)
+    want = jops.flash_attention(qj, kj, vj, causal=causal, window=window, q_block=32,
+                                kv_block=32, interpret=True, use_pallas=True)
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (16, 16, True, 0, 0), (8, 24, True, 5, 16), (12, 20, False, 0, 0)])
+def test_naive_attention_matches_jax(sq, sk, causal, window, q_offset, dtype):
+    from repro.models.attention import naive_attention as jax_naive
+    from repro_torch.models.attention import naive_attention
+
+    rng = np.random.default_rng(4)
+    qj, qt = _pair(rng, (2, sq, 6, 16), dtype)
+    kj, kt = _pair(rng, (2, sk, 2, 16), dtype)
+    vj, vt = _pair(rng, (2, sk, 2, 16), dtype)
+    want = jax_naive(qj, kj, vj, causal=causal, window=window, q_offset=q_offset)
+    got = naive_attention(qt, kt, vt, causal=causal, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol(dtype))
+
+
+# ------------------------------------------------------ decode attention
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv,dh,window,fill", [
+    (128, 8, 2, 64, 0, 128),
+    (128, 8, 2, 64, 0, 77),
+    (96, 4, 4, 32, 32, 96),
+    (100, 6, 2, 16, 0, 50),
+])
+def test_decode_attention_plain_matches_pallas(s, hq, hkv, dh, window, fill, dtype):
+    b = 2
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(rng, (b, hq, dh), dtype)
+    kj, kt = _pair(rng, (b, s, hkv, dh), dtype)
+    vj, vt = _pair(rng, (b, s, hkv, dh), dtype)
+    slot = np.where(np.arange(s)[None] < fill, np.arange(s)[None], -1)
+    slot = np.broadcast_to(slot, (b, s)).astype(np.int32).copy()
+    slot[1, 3] = -1  # a hole inside the filled range
+    cur = np.array([fill, fill - 7], np.int32)
+    want = jops.decode_attention(qj, kj, vj, jnp.asarray(slot), jnp.asarray(cur), window=window,
+                                 kv_block=32, interpret=True, use_pallas=True)
+    got = ops.decode_attention(qt, kt, vt, torch.from_numpy(slot), torch.from_numpy(cur),
+                               window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol(dtype))
+
+
+# ------------------------------------------- the wrappers take CUDA only
+@pytest.mark.parametrize("call", [
+    lambda t: krms.rmsnorm(t(4, 32), t(32)),
+    lambda t: kfl.flash_attention(t(1, 8, 4, 16), t(1, 8, 2, 16), t(1, 8, 2, 16)),
+    lambda t: kdec.decode_attention(t(1, 4, 16), t(1, 8, 2, 16), t(1, 8, 2, 16),
+                                    torch.zeros(1, 8, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32)),
+], ids=["rmsnorm", "flash_attention", "decode_attention"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """A kernel wrapper never falls back to the plain version: a CPU tensor raises."""
+    with pytest.raises(ValueError, match="CUDA"):
+        call(lambda *shape: torch.zeros(shape))

@@ -1,0 +1,155 @@
+"""The port's dense model against the JAX package's, on granite-8b smoke.
+
+Weights come from ``repro``'s ``init_params`` and are carried across by
+``repro_torch.bridge``; token inputs come from a numpy seed. Everything runs
+on the CPU, where the port's kernels take their plain versions.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro.models.model import build as jax_build  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.models.common import tree_items  # noqa: E402
+from repro_torch.models.model import build  # noqa: E402
+
+ARCH = "granite-8b"
+TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+       "bfloat16": dict(rtol=5e-2, atol=5e-1)}   # tests/test_serving.py:48
+
+
+def _models(dtype):
+    jcfg = jax_get_smoke(ARCH).replace(dtype=dtype)
+    japi = jax_build(jcfg)
+    jparams = japi.init_params(jax.random.PRNGKey(0))
+    api = build(get_smoke(ARCH).replace(dtype=dtype), device="cpu")
+    params = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    return japi, jparams, api, params
+
+
+def _jax_paths(tree):
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(str(p.key) for p in path): leaf for path, leaf in flat}
+
+
+def test_configs_match_the_reference():
+    from repro.configs import get_config as jax_get_config
+
+    for mine, ref in ((get_config(ARCH), jax_get_config(ARCH)), (get_smoke(ARCH), jax_get_smoke(ARCH))):
+        for f in ("name", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+                  "vocab_size", "head_dim", "tie_embeddings", "rope_theta", "norm_eps", "dtype"):
+            assert getattr(mine, f) == getattr(ref, f), f
+        assert mine.resolved_head_dim == ref.resolved_head_dim
+        assert mine.num_params() == ref.num_params()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridged_params_keep_paths_shapes_and_bits(dtype):
+    _, jparams, api, params = _models(dtype)
+    jflat = _jax_paths(jparams)
+    flat = dict(tree_items(params))
+    assert sorted(flat) == sorted(jflat)
+    assert {p: tuple(s.shape) for p, s in tree_items(api.param_template)} == \
+        {p: tuple(a.shape) for p, a in jflat.items()}
+    for path, t in flat.items():
+        want = np.asarray(jflat[path])
+        assert str(t.dtype).removeprefix("torch.") == want.dtype.name, path
+        if dtype == "bfloat16":   # the same 16 bits, read through uint16
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(), want.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_logits_match_jax(dtype):
+    japi, jparams, api, params = _models(dtype)
+    rng = np.random.default_rng(3)
+    B, S = 2, 16
+    tokens = rng.integers(0, api.cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    plens = np.array([S, 11], np.int32)
+
+    jl, jcache = jax.jit(japi.prefill)(jparams, jnp.asarray(tokens[:, :S]), jnp.asarray(plens))
+    tl, tcache = api.prefill(params, torch.from_numpy(tokens[:, :S]), torch.from_numpy(plens))
+    np.testing.assert_allclose(bridge.to_numpy(tl), np.asarray(jl), **TOL[dtype])
+
+    # the prefill cache: same tree, same values
+    jflat, tflat = _jax_paths(jcache), dict(tree_items(tcache))
+    assert sorted(jflat) == sorted(tflat)
+    for path in ("pos", "attn/slot_pos"):
+        np.testing.assert_array_equal(tflat[path].numpy(), np.asarray(jflat[path]))
+    for path in ("attn/k", "attn/v"):
+        np.testing.assert_allclose(bridge.to_numpy(tflat[path]), np.asarray(jflat[path], np.float32),
+                                   **TOL[dtype])
+
+    nxt = tokens[np.arange(B), plens]
+    jd, _ = jax.jit(japi.decode_step)(jparams, jcache, jnp.asarray(nxt))
+    td, tcache = api.decode_step(params, tcache, torch.from_numpy(nxt))
+    np.testing.assert_allclose(bridge.to_numpy(td), np.asarray(jd), **TOL[dtype])
+    np.testing.assert_array_equal(tcache["pos"].numpy(), plens + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_decode_consistency(dtype):
+    """Counterpart of tests/test_serving.py::test_prefill_decode_consistency:
+    prefill(t[0:S]) then decode(t[S]) gives the logits of prefill(t[0:S+1])."""
+    _, _, api, params = _models(dtype)
+    rng = np.random.default_rng(2)
+    B, S = 2, 16
+    tokens = torch.from_numpy(rng.integers(0, api.cfg.vocab_size, size=(B, S + 1)).astype(np.int32))
+    full_logits, _ = api.prefill(params, tokens, torch.full((B,), S + 1, dtype=torch.int32))
+    _, cache = api.prefill(params, tokens, torch.full((B,), S, dtype=torch.int32))
+    step_logits, _ = api.decode_step(params, cache, tokens[:, S])
+    a, b = full_logits.numpy(), step_logits.numpy()
+    np.testing.assert_allclose(a, b, rtol=5e-2, atol=5e-1)
+    assert (np.argmax(a, -1) == np.argmax(b, -1)).mean() >= 0.5
+
+
+@pytest.mark.parametrize("batch,cache_len", [(1, 8), (4, 24)])
+def test_empty_cache_tree_matches_jax(batch, cache_len):
+    jcache = jax_transformer.empty_cache(jax_get_smoke(ARCH), batch, cache_len)
+    tcache = build(get_smoke(ARCH), device="cpu").init_cache(batch, cache_len)
+    jflat, tflat = _jax_paths(jcache), dict(tree_items(tcache))
+    assert sorted(jflat) == sorted(tflat)
+    for path, t in tflat.items():
+        want = np.asarray(jflat[path])
+        assert tuple(t.shape) == want.shape, path
+        assert str(t.dtype).removeprefix("torch.") == want.dtype.name, path
+        np.testing.assert_array_equal(bridge.to_numpy(t), want.astype(np.float32)
+                                      if want.dtype.name == "bfloat16" else want)
+
+
+def test_init_params_is_seeded_and_scaled():
+    api = build(get_smoke(ARCH), device="cpu")
+    assert api.param_count() == api.cfg.num_params()
+    assert api.param_bytes() == 2 * api.cfg.num_params()  # bf16
+    a = api.init_params(torch.Generator().manual_seed(0))
+    b = api.init_params(torch.Generator().manual_seed(0))
+    c = api.init_params(torch.Generator().manual_seed(1))
+    fa, fb, fc = dict(tree_items(a)), dict(tree_items(b)), dict(tree_items(c))
+    for path in fa:
+        assert torch.equal(fa[path], fb[path]), path
+    assert not torch.equal(fa["blocks/attn/wq"], fc["blocks/attn/wq"])
+    assert torch.equal(fa["final_norm"], torch.ones_like(fa["final_norm"]))
+    embed = fa["embed"].float()
+    assert abs(embed.std().item() - 0.02) < 0.002
+    # fan-in scaled truncated normal: std(N(0,1) cut at +-2) ~ 0.8796 / sqrt(fan_in)
+    wq = fa["blocks/attn/wq"].float()
+    fan_in = wq.shape[0] * wq.shape[1]
+    assert abs(wq.std().item() * fan_in**0.5 - 0.8796) < 0.05
+    assert wq.abs().max().item() <= 2.0 / fan_in**0.5 + 1e-2
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points run there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build(get_smoke(ARCH))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.to_tensor(np.zeros(3, np.float32))

@@ -1,0 +1,101 @@
+"""The port's continuous batcher against the JAX package's, token for token.
+
+granite-8b smoke with float32 weights from ``repro``'s ``init_params``,
+carried across by ``repro_torch.bridge``. The decode cache is bf16 in both
+packages, so both round where the reference rounds.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
+from repro.models.model import build as jax_build  # noqa: E402
+from repro.serving.batching import ContinuousBatcher as JaxBatcher  # noqa: E402
+from repro.serving.batching import Request as JaxRequest  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.models.model import build  # noqa: E402
+from repro_torch.serving.batching import ContinuousBatcher, Request  # noqa: E402
+from repro_torch.serving.engine import build_serve_steps, generate  # noqa: E402
+
+CACHE_LEN, MAX_NEW = 24, 6
+# tests/test_serving.py:57-73, plus one request that runs past the cache
+# (its 20 prompt tokens + 10 new ones overwrite the last slot, as the
+# reference's min(pos, S - 1) does)
+REQUESTS = [([5, 9, 2, 7], MAX_NEW), ([1, 2, 3], MAX_NEW), ([11, 4, 8, 15, 16], MAX_NEW),
+            (list(range(3, 23)), 10)]
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jax_get_smoke("granite-8b").replace(dtype="float32")
+    japi = jax_build(jcfg)
+    jparams = japi.init_params(jax.random.PRNGKey(0))
+    api = build(get_smoke("granite-8b").replace(dtype="float32"), device="cpu")
+    params = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    return japi, jparams, api, params
+
+
+def _run(batcher_cls, request_cls, api, params):
+    batcher = batcher_cls(api, params, num_slots=2, cache_len=CACHE_LEN)
+    for rid, (prompt, max_new) in enumerate(REQUESTS):
+        batcher.submit(request_cls(rid, prompt, max_new_tokens=max_new))
+    return batcher.run_to_completion(), batcher
+
+
+def test_batcher_token_streams_equal_jax(models):
+    japi, jparams, api, params = models
+    want, jbatcher = _run(JaxBatcher, JaxRequest, japi, jparams)
+    got, batcher = _run(ContinuousBatcher, Request, api, params)
+    assert got == want
+    assert all(len(got[rid]) == n for rid, (_, n) in enumerate(REQUESTS))
+    assert batcher.steps == jbatcher._steps
+    # the final shared cache: every slot decoded each step (pos advanced for
+    # empty ones too), the last request's tail written at min(pos, S - 1)
+    np.testing.assert_array_equal(batcher.cache["pos"].numpy(), np.asarray(jbatcher.cache["pos"]))
+    np.testing.assert_array_equal(batcher.cache["attn"]["slot_pos"].numpy(),
+                                  np.asarray(jbatcher.cache["attn"]["slot_pos"]))
+    for leaf in ("k", "v"):
+        np.testing.assert_allclose(bridge.to_numpy(batcher.cache["attn"][leaf]),
+                                   np.asarray(jbatcher.cache["attn"][leaf], np.float32),
+                                   rtol=3e-2, atol=3e-2)  # bf16 cache: tests/test_kernels.py::_tol
+
+
+def test_generate_equals_batcher(models):
+    _, _, api, params = models
+    got, _ = _run(ContinuousBatcher, Request, api, params)
+    for rid, (prompt, max_new) in enumerate(REQUESTS[:3]):
+        toks = torch.tensor([prompt + [0] * (CACHE_LEN - len(prompt))], dtype=torch.int32)
+        seq = generate(api, params, toks, torch.tensor([len(prompt)], dtype=torch.int32), max_new)
+        assert seq[0].tolist() == got[rid], f"req {rid}"
+
+
+def test_generate_equals_jax_generate(models):
+    from repro.serving.engine import generate as jax_generate
+
+    japi, jparams, api, params = models
+    prompt = [11, 4, 8, 15, 16]
+    toks = np.asarray([prompt + [0] * (CACHE_LEN - len(prompt))], np.int32)
+    plen = np.asarray([len(prompt)], np.int32)
+    want = np.asarray(jax_generate(japi, jparams, jnp.asarray(toks), jnp.asarray(plen), MAX_NEW))
+    got = generate(api, params, torch.from_numpy(toks), torch.from_numpy(plen), MAX_NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sampling_takes_an_explicit_generator(models):
+    _, _, api, params = models
+    toks = torch.tensor([[5, 9, 2, 7] + [0] * (CACHE_LEN - 4)], dtype=torch.int32)
+    plen = torch.tensor([4], dtype=torch.int32)
+    runs = [generate(api, params, toks, plen, 4, temperature=1.0,
+                     generator=torch.Generator().manual_seed(7)) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert runs[0].shape == (1, 4) and runs[0].dtype == torch.int32
+    steps = build_serve_steps(api)
+    logits = torch.tensor([[0.0, 5.0, 1.0]])
+    assert steps.sample(logits, None, 0.0).tolist() == [1]
+    step_logits, nxt, _ = steps.decode(params, steps.prefill(params, toks, plen)[1], runs[0][:, 0])
+    assert nxt.tolist() == [int(step_logits[0].argmax())]
