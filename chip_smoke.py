@@ -8,15 +8,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   1. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
   2. kernels: each hand-written kernel against its plain PyTorch version at
-     the main path's shapes, in bf16 and f32, with kernel, plain and library
-     device times (``Timer``) and the card's bound for the same work;
-  3. serving: granite-8b at full width and depth in bf16, random weights
-     from a seeded generator, 8 requests through ``ContinuousBatcher``
-     (4 slots, cache 1024); launch counters must equal the expected counts;
-     then a profile of one prefill and a few decode steps by kernel;
-  4. the model against the plain CPU reference: granite-8b at full width cut
-     to 2 layers, prefill of a 128-token prompt plus 4 decode steps, on the
-     card through the kernels and on the CPU through the plain versions.
+     the main paths' shapes (granite-8b's and olmoe-1b-7b's), in bf16 and
+     f32, with kernel, plain and library device times (``Timer``) and the
+     card's bound for the same work;
+  3. serving, once per model: granite-8b (dense) and olmoe-1b-7b (MoE) at
+     full width and depth in bf16, random weights from a seeded generator,
+     8 requests through ``ContinuousBatcher`` (4 slots, cache 1024); launch
+     counters, set to 0 just before each run and read just after, must equal
+     the expected counts; then a profile of one prefill and a few decode
+     steps by kernel group (and, for olmoe, the MoE layer's device time);
+  4. the models against the plain CPU reference, each at full width cut to
+     2 layers: prefill of a 128-token prompt plus 4 decode steps, on the card
+     through the kernels and on the CPU through the plain versions (granite
+     and olmoe; for olmoe also the share of tokens routed to another set of
+     experts); and a float32 granite served through the batcher on the card
+     (float32 queries against its bf16 cache) with the CPU batcher's tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -24,6 +30,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +46,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
+SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b")
+# phase 4: the share of (token, layer) top-k expert sets that a bf16 run on the
+# card may route differently from the float32 CPU run (bf16 rounding moves
+# near-ties between the k-th and the next expert); float32 must route alike
+MAX_ROUTE_DIFF = {"bfloat16": 0.25, "float32": 0.0}
 
 
 def log(msg: str) -> None:
@@ -116,6 +128,12 @@ def phase_card(torch) -> str:
     return name
 
 
+def _no_tf32(torch):
+    """The MoE router product must be full float32, or tokens go to other experts."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is on: the router needs float32")
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -142,6 +160,7 @@ def phase_kernels(torch, timer: Timer):
 
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import rmsnorm as krms
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -152,18 +171,22 @@ def phase_kernels(torch, timer: Timer):
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
 
-    def record(entry, main: bool, name, case, make, nbytes, flops, dtype_name, op_type):
-        """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them."""
+    def record(entry, main: bool, name, case, make, nbytes, flops, dtype_name, op_type,
+               label=None):
+        """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them;
+        ``dtype_name`` is the output's dtype (it sets the tolerance), ``op_type`` the
+        arithmetic's (it sets the peak rate of the bound)."""
+        label = label or dtype_name
         sets = [make() for _ in range(Timer.COPIES)]
         kernel_fn, plain_fn, lib_fn = sets[0]
         out = kernel_fn()
         torch.cuda.synchronize()
-        err = _check(f"{name} {case} {dtype_name}", out, plain_fn(), dtype_name)
+        err = _check(f"{name} {case} {label}", out, plain_fn(), dtype_name)
         (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
         l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
         b_ms, b_by = bound_ms(nbytes, flops, op_type)
         flag = lambda hb: " (host-bound)" if hb else ""
-        log(f"[kernels] {name} {case} {dtype_name}: kernel_ms {k_ms:.5f}{flag(k_hb)} "
+        log(f"[kernels] {name} {case} {label}: kernel_ms {k_ms:.5f}{flag(k_hb)} "
             f"plain_ms {p_ms:.5f}{flag(p_hb)} "
             f"library_ms {('%.5f' % l_ms) if l_ms is not None else 'null'}{flag(l_hb)} "
             f"bound_ms {b_ms:.5f} = {1e3 * b_ms:.2f} us ({b_by}: {nbytes / 1e6:.3f} MB, "
@@ -189,16 +212,17 @@ def phase_kernels(torch, timer: Timer):
                    "float32")  # the statistics are float32 arithmetic
     rows.append(e_rms)
 
-    # --- flash attention: granite prefill, plus a ragged Sq and a window ---
+    # --- flash attention: granite prefill (G = 4), a ragged Sq, a window; olmoe (G = 1) ---
     e_fl = dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:105")
     for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        for sq, window in ((1024, 0), (1000, 0), (1024, 256)):
+        for hq, hkv, sq, window in ((32, 8, 1024, 0), (32, 8, 1000, 0), (32, 8, 1024, 256),
+                                    (16, 16, 1024, 0)):
             qp, kp = torch.arange(sq, device="cuda")[:, None], torch.arange(sq, device="cuda")[None]
             allowed = (kp <= qp) & ((qp - kp < window) if window > 0 else True)
 
-            def make(sq=sq, window=window, dt=dt, allowed=allowed):
-                q, k, v = rnd((1, sq, 32, 128), dt), rnd((1, sq, 8, 128), dt), rnd((1, sq, 8, 128), dt)
+            def make(sq=sq, window=window, dt=dt, allowed=allowed, hq=hq, hkv=hkv):
+                q, k, v = rnd((1, sq, hq, 128), dt), rnd((1, sq, hkv, 128), dt), rnd((1, sq, hkv, 128), dt)
 
                 def lib():
                     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -212,58 +236,89 @@ def phase_kernels(torch, timer: Timer):
                         lib if has_gqa else None)
 
             size = torch.tensor([], dtype=dt).element_size()
-            nbytes = (2 * sq * 32 * 128 + 2 * sq * 8 * 128) * size  # q and out, k and v
-            flops = 4.0 * 32 * 128 * int(allowed.sum())            # QK^T and PV on allowed pairs
-            record(e_fl, dtn == "bfloat16" and sq == 1024 and window == 0, "flash_attention",
-                   f"q[1,{sq},32,128] kv[1,{sq},8,128] causal window={window}",
+            nbytes = (2 * sq * hq * 128 + 2 * sq * hkv * 128) * size  # q and out, k and v
+            flops = 4.0 * hq * 128 * int(allowed.sum())              # QK^T and PV on allowed pairs
+            record(e_fl, dtn == "bfloat16" and hq == 32 and sq == 1024 and window == 0,
+                   "flash_attention", f"q[1,{sq},{hq},128] kv[1,{sq},{hkv},128] causal window={window}",
                    make, nbytes, flops, dtn, dtn)
     rows.append(e_fl)
 
-    # --- decode attention: B 4, S 1024, partly filled slots (-1 empty) ---
+    # --- decode attention: B 4, S 1024, partly filled slots (-1 empty); granite (G = 4),
+    # olmoe (G = 1), and a float32 q against the bf16 cache (a float32 model's batcher) ---
     e_dec = dict(name="decode_attention", route="cuda",
                  source="src/repro_torch/csrc/decode_attention.cu",
                  replaces="src/repro/kernels/decode_attention.py:85")
-    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        for window in (0, 128):
-            b, s = 4, 1024
-            fill = torch.tensor([1024, 700, 300, 64], device="cuda", dtype=torch.int32)
-            ar = torch.arange(s, device="cuda", dtype=torch.int32)[None]
-            slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
-            slot[1, 5:9] = -1  # holes inside a filled range
-            cur = (fill - 1).to(torch.int32)
-            valid = (slot >= 0) & (slot <= cur[:, None])
-            if window > 0:
-                valid &= cur[:, None] - slot < window
+    b, s = 4, 1024
+    fill = torch.tensor([1024, 700, 300, 64], device="cuda", dtype=torch.int32)
+    ar = torch.arange(s, device="cuda", dtype=torch.int32)[None]
+    slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
+    slot[1, 5:9] = -1  # holes inside a filled range
+    cur = (fill - 1).to(torch.int32)
+    for qdt, cdt, hq, hkv, window in (
+            (torch.bfloat16, torch.bfloat16, 32, 8, 0), (torch.bfloat16, torch.bfloat16, 32, 8, 128),
+            (torch.bfloat16, torch.bfloat16, 16, 16, 0), (torch.float32, torch.float32, 32, 8, 0),
+            (torch.float32, torch.float32, 32, 8, 128), (torch.float32, torch.float32, 16, 16, 0),
+            (torch.float32, torch.bfloat16, 32, 8, 0)):
+        cdtn = str(cdt).removeprefix("torch.")
+        valid = (slot >= 0) & (slot <= cur[:, None])
+        if window > 0:
+            valid &= cur[:, None] - slot < window
 
-            def make(window=window, dt=dt, valid=valid):
-                q, kc, vc = rnd((b, 32, 128), dt), rnd((b, s, 8, 128), dt), rnd((b, s, 8, 128), dt)
+        def make(window=window, qdt=qdt, cdt=cdt, valid=valid, hq=hq, hkv=hkv):
+            q, kc, vc = rnd((b, hq, 128), qdt), rnd((b, s, hkv, 128), cdt), rnd((b, s, hkv, 128), cdt)
 
-                def lib():
-                    return F.scaled_dot_product_attention(
-                        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                        attn_mask=valid[:, None, None, :], enable_gqa=True)
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None].to(cdt), kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=valid[:, None, None, :], enable_gqa=True)
 
-                return (lambda: kdec.decode_attention(q, kc, vc, slot, cur, window=window),
-                        lambda: kdec.plain(q, kc, vc, slot, cur, window=window),
-                        lib if has_gqa else None)
+            return (lambda: kdec.decode_attention(q, kc, vc, slot, cur, window=window),
+                    lambda: kdec.plain(q, kc, vc, slot, cur, window=window),
+                    lib if has_gqa else None)
 
-            n_valid = int(valid.sum())  # this run's data: only valid slots need K and V
-            size = torch.tensor([], dtype=dt).element_size()
-            nbytes = 2 * n_valid * 8 * 128 * size + 2 * b * 32 * 128 * size + (b * s + b) * 4
-            record(e_dec, dtn == "bfloat16" and window == 0, "decode_attention",
-                   f"q[4,32,128] cache[4,1024,8,128] window={window} valid_slots={n_valid}",
-                   make, nbytes, 4.0 * 32 * 128 * n_valid, dtn, dtn)
+        n_valid = int(valid.sum())  # this run's data: only valid slots need K and V
+        qsize, csize = (torch.tensor([], dtype=t).element_size() for t in (qdt, cdt))
+        nbytes = 2 * n_valid * hkv * 128 * csize + b * hq * 128 * (qsize + csize) + (b * s + b) * 4
+        types = cdtn if qdt == cdt else f"float32 q, {cdtn} cache"
+        record(e_dec, cdtn == "bfloat16" and qdt == cdt and hq == 32 and window == 0,
+               "decode_attention",
+               f"q[4,{hq},128] cache[4,1024,{hkv},128] window={window} valid_slots={n_valid}",
+               make, nbytes, 4.0 * hq * 128 * n_valid, cdtn, "float32" if qdt != cdt else cdtn,
+               label=types)
     rows.append(e_dec)
+
+    # --- moe_gmm: olmoe's expert products at prefill (C = 160) and decode (C = 8), and a
+    # ragged shape (tests/test_kernels.py:120) ---
+    e_gmm = dict(name="moe_gmm", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+                 replaces="src/repro/kernels/moe_gmm.py:42")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for e, c, d, f, what in ((64, 8, 2048, 1024, "decode gate/up"),
+                                 (64, 8, 1024, 2048, "decode down"),
+                                 (64, 160, 2048, 1024, "prefill gate/up"),
+                                 (64, 160, 1024, 2048, "prefill down"),
+                                 (8, 40, 100, 72, "ragged")):
+            def make(e=e, c=c, d=d, f=f, dt=dt):
+                xe, we = rnd((e, c, d), dt), rnd((e, d, f), dt) * d**-0.5
+                return (lambda: kgmm.moe_gmm(xe, we), lambda: kgmm.plain(xe, we),
+                        lambda: torch.bmm(xe, we))
+
+            size = torch.tensor([], dtype=dt).element_size()
+            record(e_gmm, dtn == "bfloat16" and what == "decode gate/up", "moe_gmm",
+                   f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]", make,
+                   (e * c * d + e * d * f + e * c * f) * size, 2.0 * e * c * d * f, dtn, dtn)
+    rows.append(e_gmm)
     return rows
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch: str, timer: Timer):
+    """Serve ``arch`` at full width and depth; returns its run's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build
     from repro_torch.serving.batching import ContinuousBatcher, Request
 
-    cfg = get_config("granite-8b")
+    _no_tf32(torch)
+    cfg = get_config(arch)
     api = build(cfg, device="cuda")
     t0 = time.perf_counter()
     params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -309,21 +364,23 @@ def phase_serve(torch):
     for r in reqs:
         toks = np.asarray(r.generated)
         if len(toks) != SERVE_NEW or toks.min() < 0 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r.rid}: bad output {r.generated}")
-        log(f"[serve] request {r.rid}: prompt {len(r.prompt)} tokens, TTFT "
+            raise AssertionError(f"{arch} request {r.rid}: bad output {r.generated}")
+        log(f"[serve] {arch} request {r.rid}: prompt {len(r.prompt)} tokens, TTFT "
             f"{1e3 * (r.first_token_at - t_start):.1f} ms, first tokens {r.generated[:4]}")
     prefills, steps = len(reqs), batcher.steps
+    moe = cfg.family == "moe"
     expected = {"rmsnorm": (2 * cfg.num_layers + 1) * (prefills + steps),
                 "flash_attention": cfg.num_layers * prefills,
-                "decode_attention": cfg.num_layers * steps}
-    log(f"[serve] {prefills} prefills, {steps} decode steps, {decode_tokens} decode tokens in "
-        f"{decode_s[0]:.3f} s of decode steps: {decode_tokens / decode_s[0]:.1f} tokens/s, "
-        f"{1e3 * decode_s[0] / steps:.2f} ms/step; wall {wall:.3f} s; "
+                "decode_attention": cfg.num_layers * steps,
+                "moe_gmm": 3 * cfg.num_layers * (prefills + steps) if moe else 0}
+    log(f"[serve] {arch}: {prefills} prefills, {steps} decode steps, {decode_tokens} decode "
+        f"tokens in {decode_s[0]:.3f} s of decode steps: {decode_tokens / decode_s[0]:.1f} "
+        f"tokens/s, {1e3 * decode_s[0] / steps:.2f} ms/step; wall {wall:.3f} s; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, n in expected.items():
-        log(f"[serve] launches {name}: {counts[name]} (expected {n})")
+        log(f"[serve] {arch} launches {name}: {counts[name]} (expected {n})")
     if counts != expected:
-        raise AssertionError(f"launch counts {counts} != expected {expected}")
+        raise AssertionError(f"{arch}: launch counts {counts} != expected {expected}")
 
     # where a prefill's and a decode step's device time goes (after the counts were read)
     prompt = prompts[0]
@@ -331,14 +388,41 @@ def phase_serve(torch):
                           device="cuda")
     plens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     step_tokens = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
-    profile_breakdown(torch, "prefill", 1, lambda: api.prefill(params, tokens, plens))
-    profile_breakdown(torch, "decode step", 4,
+    profile_breakdown(torch, f"{arch} prefill", 1, lambda: api.prefill(params, tokens, plens))
+    profile_breakdown(torch, f"{arch} decode step", 4,
                       lambda: api.decode_step(params, batcher.cache, step_tokens))
+    if moe:
+        moe_layer_times(torch, timer, cfg, params)
     return counts
+
+
+def moe_layer_times(torch, timer: Timer, cfg, params):
+    """Device time of one MoE layer (routing, dispatch, the three expert products,
+    combine) at the serving path's two token counts, beside its moe_gmm calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_slice
+
+    mp = layer_slice(params["blocks"], 0)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for what, tokens in (("prefill", SERVE_CACHE), ("decode step", SERVE_SLOTS)):
+        x = torch.randn((tokens, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        cap = moe.expert_capacity(cfg, tokens)
+        xe = torch.randn((cfg.num_experts, cap, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        xd = torch.randn((cfg.num_experts, cap, cfg.d_ff), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        layer_ms, hb = timer.ms([lambda: moe.apply_moe(x, mp, cfg, group_size=tokens)])
+        gmm_ms = (2 * timer.ms([lambda: ops.moe_gmm(xe, mp["w_gate"])])[0]
+                  + timer.ms([lambda: ops.moe_gmm(xd, mp["w_down"])])[0])
+        log(f"[profile] {cfg.name} MoE layer, {what} ({tokens} tokens, capacity {cap}): "
+            f"{layer_ms:.4f} ms{' (host-bound)' if hb else ''}, of which its three moe_gmm "
+            f"calls {gmm_ms:.4f} ms (device time, weights L2-cold)")
 
 
 KERNEL_GROUPS = (("rmsnorm kernel", ("rmsnorm_kernel",)), ("flash kernel", ("flash_kernel",)),
                  ("decode kernel", ("decode_kernel",)),
+                 ("moe_gmm kernel", ("gmm_bf16_kernel", "gmm_f32_kernel")),
                  ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
@@ -356,7 +440,7 @@ def profile_breakdown(torch, what: str, reps: int, fn):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    groups, launches = {}, {}
+    groups, launches, others = {}, {}, []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
@@ -366,6 +450,8 @@ def profile_breakdown(torch, what: str, reps: int, fn):
         name = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
         groups[name] = groups.get(name, 0.0) + us / 1e3 / reps
         launches[name] = launches.get(name, 0) + ev.count / reps
+        if name == "other":
+            others.append((us / 1e3 / reps, ev.count / reps, ev.key))
     busy = sum(groups.values())
     if busy == 0.0:
         log(f"[profile] {what}: the profiler recorded no device kernels")
@@ -374,14 +460,37 @@ def profile_breakdown(torch, what: str, reps: int, fn):
                       for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
     log(f"[profile] {what}: wall {wall_ms:.3f} ms under the profiler, device busy {busy:.3f} ms, "
         f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; {parts}")
+    top = "; ".join(f"{ms:.3f} ms ({n:.0f}) {key[:90]}" for ms, n, key in sorted(others)[::-1][:4])
+    log(f"[profile] {what}: largest in other: {top}")
+
+
+def cast_params(params, template, device, dtype):
+    """``params`` on ``device`` in ``dtype``, except the leaves whose spec fixes a dtype:
+    the MoE router stays float32, as in the reference's bf16 model."""
+    from repro_torch.models.common import torch_dtype
+
+    return {k: cast_params(v, template[k], device, dtype) if isinstance(v, dict)
+            else v.to(device=device, dtype=torch_dtype(template[k].dtype) if template[k].dtype
+                      else dtype)
+            for k, v in params.items()}
 
 
 def phase_reference(torch):
+    for arch in SERVE_ARCHS:
+        reference_model(torch, arch)
+    reference_batcher(torch)
+
+
+def reference_model(torch, arch: str):
+    """``arch`` at full width cut to 2 layers, on the card (float32 and bf16, through
+    the kernels) against the CPU's float32 plain run; for MoE, also the share of
+    (token, layer) top-k expert sets that the card routed differently."""
     from repro_torch.configs import get_config
-    from repro_torch.models.common import tree_map
+    from repro_torch.models import moe
     from repro_torch.models.model import build
 
-    cfg = get_config("granite-8b").replace(num_layers=2)
+    _no_tf32(torch)
+    cfg = get_config(arch).replace(num_layers=2)
     rng = np.random.default_rng(1)
     plen, n_dec, pad = 128, 4, 8
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, plen + pad)), dtype=torch.int32)
@@ -389,12 +498,20 @@ def phase_reference(torch):
     gpu = build(cfg, device="cuda")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
     cpu = build(cfg, device="cpu")
-    params_cpu = tree_map(lambda t: t.float().cpu(), params)
+    params_cpu = cast_params(params, cpu.param_template, "cpu", torch.float32)
 
     forced = rng.integers(0, cfg.vocab_size, size=n_dec).tolist()  # teacher-forced tokens
+    routes = []  # per run: the sorted top-k expert ids of every _route call, in call order
+    real_route = moe._route
+
+    def recording_route(x, router, k):
+        out = real_route(x, router, k)
+        routes[-1].append(out[0].sort(dim=-1).values.reshape(-1, k).cpu())
+        return out
 
     def run(api, p, device, dtype):
-        p = tree_map(lambda t: t.to(device=device, dtype=dtype), p)
+        routes.append([])
+        p = cast_params(p, api.param_template, device, dtype)
         logits, cache = api.prefill(p, prompt.to(device), plens.to(device))
         outs = [logits.float().cpu()]
         for tok in forced:
@@ -402,19 +519,75 @@ def phase_reference(torch):
             outs.append(logits.float().cpu())
         return torch.cat(outs)
 
-    with torch.inference_mode():
-        want = run(cpu, params_cpu, "cpu", torch.float32)
-        for dtn, dt, rtol, atol in (("float32", torch.float32, 2e-3, 2e-3),
-                                    ("bfloat16", torch.bfloat16, 5e-2, 5e-1)):
-            got = run(gpu, params, "cuda", dt)
-            err = (got - want).abs().max().item()
-            top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-            ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all()) and top1 >= 0.6
-            log(f"[reference] 2-layer full width, card {dtn} via kernels vs CPU float32 plain: "
-                f"max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), top-1 agreement "
-                f"{top1:.2f} over {got.shape[0]} positions (need >= 0.6) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"2-layer model on the card disagrees with the CPU ({dtn})")
+    moe._route = recording_route
+    try:
+        with torch.inference_mode():
+            want = run(cpu, params_cpu, "cpu", torch.float32)
+            want_routes = routes[-1]
+            for dtn, dt, rtol, atol in (("float32", torch.float32, 2e-3, 2e-3),
+                                        ("bfloat16", torch.bfloat16, 5e-2, 5e-1)):
+                got = run(gpu, params, "cuda", dt)
+                err = (got - want).abs().max().item()
+                top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+                ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all()) and top1 >= 0.6
+                route_note = ""
+                if cfg.family == "moe":
+                    if len(routes[-1]) != len(want_routes):
+                        raise AssertionError(f"{arch}: {len(routes[-1])} routing calls on the card, "
+                                             f"{len(want_routes)} on the CPU")
+                    differ = sum(int((g != w).any(dim=-1).sum()) for g, w in zip(routes[-1], want_routes))
+                    total = sum(w.shape[0] for w in want_routes)
+                    share = differ / total
+                    ok = ok and share <= MAX_ROUTE_DIFF[dtn]
+                    route_note = (f", top-{cfg.experts_per_token} expert sets differing in {differ} of "
+                                  f"{total} (token, layer) rows = {share:.4f} (need <= "
+                                  f"{MAX_ROUTE_DIFF[dtn]})")
+                log(f"[reference] {arch} 2-layer full width, card {dtn} via kernels vs CPU float32 "
+                    f"plain: max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), top-1 agreement "
+                    f"{top1:.2f} over {got.shape[0]} positions (need >= 0.6){route_note} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{arch}: 2-layer model on the card disagrees with the CPU ({dtn})")
+    finally:
+        moe._route = real_route
+
+
+def reference_batcher(torch):
+    """A float32 granite-8b (full width, 2 layers) served through the batcher on the card:
+    its decode steps send float32 queries against the bf16 cache. The token streams
+    must equal the CPU batcher's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+
+    cfg = get_config("granite-8b").replace(num_layers=2, dtype="float32")
+    gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
+    params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(8, 97, size=6)]
+
+    def serve(api, p):
+        batcher = ContinuousBatcher(api, p, num_slots=SERVE_SLOTS, cache_len=128)
+        for i, pr in enumerate(prompts):
+            batcher.submit(Request(i, pr, max_new_tokens=8))
+        return batcher.run_to_completion(), batcher.steps
+
+    ops.reset_launch_counts()
+    got, steps = serve(gpu, params)
+    counts = ops.launch_counts()
+    want, _ = serve(cpu, params_cpu)
+    ok = got == want and counts["decode_attention"] == cfg.num_layers * steps > 0
+    same = sum(g == w for r in want for g, w in zip(got[r], want[r]))
+    log(f"[reference] granite-8b 2-layer float32 through the batcher (bf16 cache): card vs CPU "
+        f"token streams equal: {got == want} ({same} of {sum(map(len, want.values()))} tokens "
+        f"equal over {len(want)} requests, {steps} decode steps, "
+        f"{counts['decode_attention']} decode kernel launches) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("float32 batcher on the card disagrees with the CPU batcher")
 
 
 def main() -> int:
@@ -438,12 +611,15 @@ def main() -> int:
     phase_build()
     timer = Timer(torch)
     kernels = phase_kernels(torch, timer)
-    del timer
     torch.cuda.empty_cache()
-    counts = phase_serve(torch)
+    counts = {}  # launches summed over the main paths' runs
+    for arch in SERVE_ARCHS:
+        for name, n in phase_serve(torch, arch, timer).items():
+            counts[name] = counts.get(name, 0) + n
+        gc.collect()  # free one model before the next is built
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = counts[k["name"]]
-    torch.cuda.empty_cache()
     phase_reference(torch)
     log(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,19 @@
-"""Model configuration for the dense decoder family.
+"""Model configuration for the ported decoder families.
 
-A copy of the fields of ``repro.config.model.ModelConfig`` that the dense
-family reads (llama-style: RMSNorm, SwiGLU, RoPE, GQA). The port keeps its
-own copy so that it imports nothing of the JAX package.
+A copy of the fields of ``repro.config.model.ModelConfig`` that the ported
+families read:
+
+  dense -- decoder-only transformer (llama-style: RMSNorm, SwiGLU, RoPE, GQA)
+  moe   -- the dense skeleton with a top-k routed MoE FFN in place of SwiGLU
+
+The port keeps its own copy so that it imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 @dataclass(frozen=True)
@@ -23,7 +27,7 @@ class ModelConfig:
     d_model: int
     num_heads: int            # query heads
     num_kv_heads: int         # KV heads for GQA (== num_heads for MHA)
-    d_ff: int                 # SwiGLU hidden dim
+    d_ff: int                 # SwiGLU hidden dim (per-expert dim for MoE)
     vocab_size: int
 
     head_dim: int = 0         # 0 -> d_model // num_heads
@@ -32,6 +36,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    shared_expert_d_ff: int = 0   # a dense SwiGLU beside the experts; 0 -> none
 
     @property
     def resolved_head_dim(self) -> int:
@@ -45,9 +55,16 @@ class ModelConfig:
         bias = (self.num_heads + 2 * self.num_kv_heads) * dh if self.qkv_bias else 0
         return q + kv + o + bias
 
+    def _moe_ffn_params(self) -> int:
+        router = self.d_model * self.num_experts
+        experts = self.num_experts * 3 * self.d_model * self.d_ff
+        shared = 3 * self.d_model * self.shared_expert_d_ff
+        return router + experts + shared
+
     def layer_params(self) -> int:
-        """Parameters in one block: attention, SwiGLU and the two norms."""
-        return self._attn_params() + 3 * self.d_model * self.d_ff + 2 * self.d_model
+        """Parameters in one block: attention, SwiGLU or MoE FFN, and the two norms."""
+        ffn = self._moe_ffn_params() if self.family == "moe" else 3 * self.d_model * self.d_ff
+        return self._attn_params() + ffn + 2 * self.d_model
 
     def num_params(self) -> int:
         """Total parameter count N."""
@@ -63,6 +80,8 @@ def validate(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not ported; ported: {FAMILIES}")
     if cfg.num_heads <= 0 or cfg.num_kv_heads <= 0:
-        raise ValueError("dense models need query and KV heads")
+        raise ValueError("decoder models need query and KV heads")
     if cfg.num_heads % cfg.num_kv_heads:
         raise ValueError("GQA requires num_heads % num_kv_heads == 0")
+    if cfg.family == "moe" and not (cfg.num_experts > 0 and cfg.experts_per_token > 0):
+        raise ValueError("moe models need num_experts > 0 and experts_per_token > 0")

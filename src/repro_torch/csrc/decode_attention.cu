@@ -3,7 +3,11 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:decode_attention
 // (_decode_kernel). q [B, Hq, dh], caches [B, S, Hkv, dh], slot_pos [B, S]
-// int32 (-1 = empty), cur_pos [B] int32. A slot is valid iff
+// int32 (-1 = empty), cur_pos [B] int32. q and the caches share a dtype
+// (float32 or bf16, out in that dtype), or q is float32 against a bf16 cache,
+// as a float32 model's batched decode has it: then the scores are float32,
+// the probabilities are rounded to bf16 before the PV product and the output
+// is bf16, the steps of the plain version. A slot is valid iff
 // 0 <= slot_pos <= cur_pos and, with window > 0, cur_pos - slot_pos < window.
 // Masked scores take the finite sentinel -1e30, as the reference does.
 //
@@ -24,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -38,11 +44,14 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 __device__ __forceinline__ void from_float(float v, float* out) { *out = v; }
 __device__ __forceinline__ void from_float(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
 
-template <typename T>
+// TQ: q's dtype; TKV: the caches' and the output's. With TQ != TKV (float32
+// q, bf16 cache) the probabilities are rounded to TKV before the PV product.
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc, const TKV* __restrict__ vc,
               const int* __restrict__ slot_pos, const int* __restrict__ cur_pos,
-              T* __restrict__ out, int s, int hkv, int g, int dh, float scale, int window) {
+              TKV* __restrict__ out, int s, int hkv, int g, int dh, float scale, int window) {
+  constexpr bool kRoundP = !std::is_same<TQ, TKV>::value;
   __shared__ float qs[kMaxG][kMaxDh];
   __shared__ float ks[kTile][kMaxDh + 1];  // +1: lanes read different rows, spread banks
   __shared__ float vs[kTile][kMaxDh];
@@ -55,9 +64,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const int hq = hkv * g;
   const int cur = cur_pos[b];
   const int64_t slot_stride = static_cast<int64_t>(hkv) * dh;
-  const T* qb = q + (static_cast<int64_t>(b) * hq + static_cast<int64_t>(h) * g) * dh;
-  const T* kb = kc + static_cast<int64_t>(b) * s * slot_stride + static_cast<int64_t>(h) * dh;
-  const T* vb = vc + static_cast<int64_t>(b) * s * slot_stride + static_cast<int64_t>(h) * dh;
+  const TQ* qb = q + (static_cast<int64_t>(b) * hq + static_cast<int64_t>(h) * g) * dh;
+  const TKV* kb = kc + static_cast<int64_t>(b) * s * slot_stride + static_cast<int64_t>(h) * dh;
+  const TKV* vb = vc + static_cast<int64_t>(b) * s * slot_stride + static_cast<int64_t>(h) * dh;
   const int* spb = slot_pos + static_cast<int64_t>(b) * s;
 
   for (int i = tid; i < g * dh; i += kThreads) qs[i / dh][i % dh] = to_float(qb[i]);
@@ -111,7 +120,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       const float p = in_cache ? expf(sc - m_new) : 0.f;
       float sum = p;
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[r][lane] = p;
+      if (kRoundP) {
+        TKV pr;
+        from_float(p, &pr);
+        ps[r][lane] = to_float(pr);
+      } else {
+        ps[r][lane] = p;
+      }
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
@@ -135,7 +150,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     __syncthreads();
   }
 
-  T* ob = out + (static_cast<int64_t>(b) * hq + static_cast<int64_t>(h) * g) * dh;
+  TKV* ob = out + (static_cast<int64_t>(b) * hq + static_cast<int64_t>(h) * g) * dh;
 #pragma unroll
   for (int j = 0; j < kAccPerThread; ++j) {
     const int i = tid + j * kThreads;
@@ -143,7 +158,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* kc, const void* vc, const void* slot_pos,
            const void* cur_pos, void* out, int b, int s, int hq, int hkv, int dh, float scale,
            int window, void* stream) {
@@ -153,10 +168,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* slot_pos,
   }
   if (b > 0 && s > 0) {
     dim3 grid(hkv, b);
-    decode_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+    decode_kernel<TQ, TKV><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(kc), static_cast<const TKV*>(vc),
         static_cast<const int*>(slot_pos), static_cast<const int*>(cur_pos),
-        static_cast<T*>(out), s, hkv, g, dh, scale, window);
+        static_cast<TKV*>(out), s, hkv, g, dh, scale, window);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -167,14 +182,22 @@ extern "C" int decode_attention_f32(const void* q, const void* kc, const void* v
                                     const void* slot_pos, const void* cur_pos, void* out, int b,
                                     int s, int hq, int hkv, int dh, float scale, int window,
                                     void* stream) {
-  return launch<float>(q, kc, vc, slot_pos, cur_pos, out, b, s, hq, hkv, dh, scale, window,
-                       stream);
+  return launch<float, float>(q, kc, vc, slot_pos, cur_pos, out, b, s, hq, hkv, dh, scale,
+                              window, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* kc, const void* vc,
                                      const void* slot_pos, const void* cur_pos, void* out, int b,
                                      int s, int hq, int hkv, int dh, float scale, int window,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, kc, vc, slot_pos, cur_pos, out, b, s, hq, hkv, dh, scale,
-                               window, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, slot_pos, cur_pos, out, b, s, hq, hkv,
+                                              dh, scale, window, stream);
+}
+
+extern "C" int decode_attention_f32q_bf16kv(const void* q, const void* kc, const void* vc,
+                                            const void* slot_pos, const void* cur_pos, void* out,
+                                            int b, int s, int hq, int hkv, int dh, float scale,
+                                            int window, void* stream) {
+  return launch<float, __nv_bfloat16>(q, kc, vc, slot_pos, cur_pos, out, b, s, hq, hkv, dh,
+                                      scale, window, stream);
 }

@@ -42,11 +42,18 @@ SIGNATURES = {
         # q, k, v, slot_pos, cur_pos, out, b, s, hq, hkv, dh, scale, window, stream
         "decode_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         "decode_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        # float32 q against a bf16 cache, bf16 out
+        "decode_attention_f32q_bf16kv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "flash_attention": {
         # q, k, v, out, b, sq, sk, hq, hkv, dh, scale, causal, window, stream
         "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
         "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    },
+    "moe_gmm": {
+        # xe, we, out, e, c, d, f, stream
+        "moe_gmm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "moe_gmm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,7 +1,9 @@
 """Decode attention: the CUDA kernel ``csrc/decode_attention.cu`` and its plain version.
 
 Counterpart of ``repro.kernels.decode_attention``: one query token per
-sequence against a linear or ring KV cache, with slot-position masking.
+sequence against a linear or ring KV cache, with slot-position masking. q
+and the caches share a dtype, or q is float32 against a bf16 cache (a
+float32 model's batched decode: the cache is bf16 as in the reference).
 ``decode_attention`` launches the kernel on CUDA tensors and raises on
 anything else; ``plain`` is the PyTorch version the CPU path and the tests
 use.
@@ -22,20 +24,24 @@ launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_cou
 MAX_GROUP = 16      # query heads per KV head (kMaxG in the source)
 MAX_HEAD_DIM = 128  # kMaxDh in the source
 
-_ENTRY = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention_bf16"}
+# (q dtype, cache dtype) -> entry; the output has the cache's dtype
+_ENTRY = {(torch.float32, torch.float32): "decode_attention_f32",
+          (torch.bfloat16, torch.bfloat16): "decode_attention_bf16",
+          (torch.float32, torch.bfloat16): "decode_attention_f32q_bf16kv"}
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      slot_pos: torch.Tensor, cur_pos: torch.Tensor, *, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, dh]; caches [B, S, Hkv, dh] of q's dtype; slot_pos [B, S] and
-    cur_pos [B] int32 -> [B, Hq, dh] in q's dtype."""
+    """q [B, Hq, dh]; caches [B, S, Hkv, dh] of q's dtype, or bf16 under a float32 q;
+    slot_pos [B, S] and cur_pos [B] int32 -> [B, Hq, dh] in the caches' dtype."""
     global launches
     _build.check_inputs("decode_attention", q.device, q=q, k_cache=k_cache, v_cache=v_cache,
                         slot_pos=slot_pos, cur_pos=cur_pos)
-    _build.require(q.dtype in _ENTRY, f"decode_attention: dtype {q.dtype} not supported")
-    _build.require(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
-                   "decode_attention: caches must have q's dtype")
+    entry = _ENTRY.get((q.dtype, k_cache.dtype))
+    _build.require(entry is not None and v_cache.dtype == k_cache.dtype,
+                   f"decode_attention: q {q.dtype} with caches {k_cache.dtype}/{v_cache.dtype} "
+                   f"not supported")
     _build.require(slot_pos.dtype == torch.int32 and cur_pos.dtype == torch.int32,
                    "decode_attention: slot_pos and cur_pos must be int32")
     _build.require(q.dim() == 3 and k_cache.dim() == 4, "decode_attention: q [B,Hq,dh], cache [B,S,Hkv,dh]")
@@ -49,8 +55,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                    f"decode_attention: needs Hq % Hkv == 0 and Hq/Hkv <= {MAX_GROUP}")
     _build.require(0 < dh <= MAX_HEAD_DIM, f"decode_attention: head_dim must be <= {MAX_HEAD_DIM}")
     scale = float(scale if scale is not None else dh**-0.5)
-    out = torch.empty_like(q)
-    fn = getattr(_build.library("decode_attention"), _ENTRY[q.dtype])
+    out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
+    fn = getattr(_build.library("decode_attention"), entry)
     _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), slot_pos.data_ptr(),
                     cur_pos.data_ptr(), out.data_ptr(), b, s, hq, hkv, dh, scale, int(window),
                     _build.stream(q.device)), "decode_attention")

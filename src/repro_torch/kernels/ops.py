@@ -10,9 +10,11 @@ from typing import Dict, Optional
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import rmsnorm as _rms
 
-_KERNELS = {"rmsnorm": _rms, "flash_attention": _flash, "decode_attention": _decode}
+_KERNELS = {"rmsnorm": _rms, "flash_attention": _flash, "decode_attention": _decode,
+            "moe_gmm": _gmm}
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):
@@ -34,6 +36,12 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window: int = 0,
         return _decode.plain(q, k_cache, v_cache, slot_pos, cur_pos, window=window, scale=scale)
     return _decode.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, window=window,
                                     scale=scale)
+
+
+def moe_gmm(xe, we):
+    if xe.device.type == "cpu":
+        return _gmm.plain(xe, we)
+    return _gmm.moe_gmm(xe, we)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,10 +1,12 @@
-"""Decoder-only LM, dense family: parameters, prefill, decode step, cache.
+"""Decoder-only LM, dense and MoE families: parameters, prefill, decode step, cache.
 
-Counterpart of ``repro.models.transformer`` for ``family == "dense"``. Per
-layer: rms_norm -> QKV -> RoPE -> attention -> wo -> residual -> rms_norm ->
-SwiGLU -> residual; then the final norm and the (tied) LM head. The norm and
-the two attentions go through ``kernels.ops``, so on CUDA they run the
-hand-written kernels; the projections are ``torch.matmul``.
+Counterpart of ``repro.models.transformer`` for ``family`` "dense" and
+"moe". Per layer: rms_norm -> QKV -> RoPE -> attention -> wo -> residual ->
+rms_norm -> FFN -> residual; then the final norm and the (tied) LM head. The
+FFN is SwiGLU (dense) or the routed experts of ``models.moe`` (moe). The
+norm, the two attentions and the expert products go through
+``kernels.ops``, so on CUDA they run the hand-written kernels; the other
+projections are ``torch.matmul``.
 
 Layer-stacked parameters are ``[L, ...]`` tensors, sliced per layer (the
 JAX code scans over them). The decode step updates the cache in place.
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models.attention import cache_write_decode, promote
 from repro_torch.models.common import ParamSpec, resolve_device, torch_dtype, tree_map
 from repro_torch.models.layers import apply_rope, embed_tokens, swiglu
@@ -59,8 +62,11 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
         "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn_template(cfg),
         "norm2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-        "mlp": mlp_template(cfg),
     }
+    if cfg.family == "moe":
+        block["moe"] = moe.param_template(cfg)
+    else:
+        block["mlp"] = mlp_template(cfg)
     t: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed"),
         "blocks": tree_map(lambda s: s.with_layers(cfg.num_layers), block),
@@ -116,30 +122,43 @@ def attn_decode(x, ap, cfg: ModelConfig, kc, vc, sp, pos):
     return out @ wo
 
 
-def _mlp(h, bp, cfg: ModelConfig):
+def _ffn(h, bp, cfg: ModelConfig, group_size: int):
+    """h + FFN(rms_norm(h)) and the layer's MoE aux loss (None for dense)."""
     x2 = ops.rmsnorm(h, bp["norm2"], eps=cfg.norm_eps)
-    return h + swiglu(x2, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
+    if cfg.family == "moe":
+        y, aux = moe.apply_moe(x2, bp["moe"], cfg, group_size=group_size)
+        return h + y, aux
+    return h + swiglu(x2, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"]), None
 
 
 def block_full(h, bp, cfg: ModelConfig):
-    """h [B,S,D] -> (h, k, v) with k, v the layer's rotated keys and values."""
+    """h [B,S,D] -> (h, k, v, aux) with k, v the layer's rotated keys and values
+    and aux the MoE aux loss (None for dense).
+
+    MoE routes in groups of 1024 tokens, the reference's default."""
     a_out, k, v = attn_full(ops.rmsnorm(h, bp["norm1"], eps=cfg.norm_eps), bp["attn"], cfg)
-    return _mlp(h + a_out, bp, cfg), k, v
+    h, aux = _ffn(h + a_out, bp, cfg, group_size=1024)
+    return h, k, v, aux
 
 
 def block_decode(h, bp, cfg: ModelConfig, kc, vc, sp, pos):
-    """h [B,D] -> h; the layer's cache (kc, vc, sp) is updated in place."""
+    """h [B,D] -> h; the layer's cache (kc, vc, sp) is updated in place.
+
+    MoE routes the batch as one group (capacity 8 at 4 slots), as the reference does."""
     x = ops.rmsnorm(h, bp["norm1"], eps=cfg.norm_eps)
-    return _mlp(h + attn_decode(x, bp["attn"], cfg, kc, vc, sp, pos), bp, cfg)
+    h = h + attn_decode(x, bp["attn"], cfg, kc, vc, sp, pos)
+    return _ffn(h, bp, cfg, group_size=h.shape[0])[0]
 
 
 # ---------------------------------------------------------------------------
 # Full-model forward (hidden states)
 # ---------------------------------------------------------------------------
 def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """tokens [B,S] -> (final-normed h [B,S,D], {"k", "v": [L,B,S,Hkv,dh]} or None)."""
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
+    """tokens [B,S] -> (final-normed h [B,S,D], {"k", "v": [L,B,S,Hkv,dh]} or None,
+    aux): aux is the MoE aux loss averaged over layers (0 for dense)."""
     h = embed_tokens(tokens, params["embed"])
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = None
     if collect_cache:
         b, s = tokens.shape
@@ -148,10 +167,12 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = Fa
         caches = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
                   "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
     for i in range(cfg.num_layers):
-        h, k, v = block_full(h, layer_slice(params["blocks"], i), cfg)
+        h, k, v, a = block_full(h, layer_slice(params["blocks"], i), cfg)
+        if a is not None:
+            aux = aux + a / cfg.num_layers
         if caches is not None:
             caches["k"][i], caches["v"][i] = k, v
-    return ops.rmsnorm(h, params["final_norm"], eps=cfg.norm_eps), caches
+    return ops.rmsnorm(h, params["final_norm"], eps=cfg.norm_eps), caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +216,7 @@ def prefill(params, tokens, prompt_lens, cfg: ModelConfig):
     cache length is S; slots past a prompt's length are empty (-1).
     """
     _, s = tokens.shape
-    h, caches = forward_hidden(params, tokens, cfg, collect_cache=True)
+    h, caches, _ = forward_hidden(params, tokens, cfg, collect_cache=True)
     last = torch.clamp(prompt_lens - 1, min=0).long()
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     logits = (h_last @ lm_head_weight(params, cfg)).float()

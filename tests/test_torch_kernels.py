@@ -16,6 +16,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.bridge import to_numpy, to_tensor  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kfl  # noqa: E402
+from repro_torch.kernels import moe_gmm as kgmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 
@@ -37,7 +38,8 @@ def _counters_stay_zero():
     """The plain path launches nothing: every counter stays at 0."""
     ops.reset_launch_counts()
     yield
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                                   "moe_gmm": 0}
 
 
 # ------------------------------------------------------------- rmsnorm
@@ -116,6 +118,43 @@ def test_decode_attention_plain_matches_pallas(s, hq, hkv, dh, window, fill, dty
     np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol(dtype))
 
 
+def test_decode_attention_f32_query_on_bf16_cache_matches_jax():
+    """A float32 model's batched decode: float32 q against the bf16 cache. The
+    JAX model's jnp decode attention computes this case (scores in float32,
+    probabilities rounded to bf16 before PV, a bf16 result)."""
+    from repro.models.attention import decode_attention as jax_decode
+
+    b, s, hq, hkv, dh = 2, 64, 8, 2, 32
+    rng = np.random.default_rng(6)
+    qj, qt = _pair(rng, (b, hq, dh), "float32")
+    kj, kt = _pair(rng, (b, s, hkv, dh), "bfloat16")
+    vj, vt = _pair(rng, (b, s, hkv, dh), "bfloat16")
+    slot = np.where(np.arange(s)[None] < 40, np.arange(s)[None], -1)
+    slot = np.broadcast_to(slot, (b, s)).astype(np.int32).copy()
+    cur = np.array([39, 30], np.int32)
+    want = jax_decode(qj, kj, vj, jnp.asarray(slot), jnp.asarray(cur))
+    got = ops.decode_attention(qt, kt, vt, torch.from_numpy(slot), torch.from_numpy(cur))
+    assert got.dtype == torch.bfloat16 and np.asarray(want).dtype.name == "bfloat16"
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32), **_tol("bfloat16"))
+
+
+# -------------------------------------------------------------- moe gmm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", [(4, 32, 64, 48), (8, 40, 100, 72)])
+def test_moe_gmm_plain_matches_pallas(e, c, d, f, dtype):
+    """tests/test_kernels.py:120's shapes (ragged C, D and F) and tolerances."""
+    rng = np.random.default_rng(7)
+    xj, xt = _pair(rng, (e, c, d), dtype)
+    wj, wt = _pair(rng, (e, d, f), dtype)
+    want = jops.moe_gmm(xj, wj, block_c=32, block_f=32, block_d=32, interpret=True,
+                        use_pallas=True)
+    got = ops.moe_gmm(xt, wt)
+    assert got.dtype == xt.dtype and tuple(got.shape) == (e, c, f)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               rtol=5e-2 if dtype == "bfloat16" else 1e-3,
+                               atol=5e-1 if dtype == "bfloat16" else 1e-2)
+
+
 # ------------------------------------------- the wrappers take CUDA only
 @pytest.mark.parametrize("call", [
     lambda t: krms.rmsnorm(t(4, 32), t(32)),
@@ -123,7 +162,8 @@ def test_decode_attention_plain_matches_pallas(s, hq, hkv, dh, window, fill, dty
     lambda t: kdec.decode_attention(t(1, 4, 16), t(1, 8, 2, 16), t(1, 8, 2, 16),
                                     torch.zeros(1, 8, dtype=torch.int32),
                                     torch.zeros(1, dtype=torch.int32)),
-], ids=["rmsnorm", "flash_attention", "decode_attention"])
+    lambda t: kgmm.moe_gmm(t(2, 8, 16), t(2, 16, 24)),
+], ids=["rmsnorm", "flash_attention", "decode_attention", "moe_gmm"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper never falls back to the plain version: a CPU tensor raises."""
     with pytest.raises(ValueError, match="CUDA"):

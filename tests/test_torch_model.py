@@ -1,4 +1,6 @@
-"""The port's dense model against the JAX package's, on granite-8b smoke.
+"""The port's model against the JAX package's, on the smoke configs of the
+ported families: granite-8b (dense), olmoe-1b-7b (MoE, MHA) and
+qwen3-moe-235b-a22b (MoE with GQA).
 
 Weights come from ``repro``'s ``init_params`` and are carried across by
 ``repro_torch.bridge``; token inputs come from a numpy seed. Everything runs
@@ -18,18 +20,20 @@ from repro.models.model import build as jax_build  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 
 ARCH = "granite-8b"
+ARCHS = ["granite-8b", "olmoe-1b-7b", "qwen3-moe-235b-a22b"]
 TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
        "bfloat16": dict(rtol=5e-2, atol=5e-1)}   # tests/test_serving.py:48
 
 
-def _models(dtype):
-    jcfg = jax_get_smoke(ARCH).replace(dtype=dtype)
+def _models(dtype, arch=ARCH):
+    jcfg = jax_get_smoke(arch).replace(dtype=dtype)
     japi = jax_build(jcfg)
     jparams = japi.init_params(jax.random.PRNGKey(0))
-    api = build(get_smoke(ARCH).replace(dtype=dtype), device="cpu")
+    api = build(get_smoke(arch).replace(dtype=dtype), device="cpu")
     params = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     return japi, jparams, api, params
 
@@ -39,20 +43,26 @@ def _jax_paths(tree):
     return {"/".join(str(p.key) for p in path): leaf for path, leaf in flat}
 
 
-def test_configs_match_the_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_the_reference(arch):
     from repro.configs import get_config as jax_get_config
 
-    for mine, ref in ((get_config(ARCH), jax_get_config(ARCH)), (get_smoke(ARCH), jax_get_smoke(ARCH))):
-        for f in ("name", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-                  "vocab_size", "head_dim", "tie_embeddings", "rope_theta", "norm_eps", "dtype"):
+    for mine, ref in ((get_config(arch), jax_get_config(arch)), (get_smoke(arch), jax_get_smoke(arch))):
+        for f in ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+                  "vocab_size", "head_dim", "tie_embeddings", "rope_theta", "norm_eps", "dtype",
+                  "num_experts", "experts_per_token", "moe_capacity_factor",
+                  "shared_expert_d_ff"):
             assert getattr(mine, f) == getattr(ref, f), f
         assert mine.resolved_head_dim == ref.resolved_head_dim
+        assert mine.layer_params() == ref.layer_params()
         assert mine.num_params() == ref.num_params()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bridged_params_keep_paths_shapes_and_bits(dtype):
-    _, jparams, api, params = _models(dtype)
+def test_bridged_params_keep_paths_shapes_and_bits(dtype, arch):
+    """Paths, shapes, dtypes (the MoE router stays float32 in a bf16 tree) and bits."""
+    _, jparams, api, params = _models(dtype, arch)
     jflat = _jax_paths(jparams)
     flat = dict(tree_items(params))
     assert sorted(flat) == sorted(jflat)
@@ -67,9 +77,10 @@ def test_bridged_params_keep_paths_shapes_and_bits(dtype):
             np.testing.assert_array_equal(t.numpy(), want)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_logits_match_jax(dtype):
-    japi, jparams, api, params = _models(dtype)
+def test_prefill_and_decode_logits_match_jax(dtype, arch):
+    japi, jparams, api, params = _models(dtype, arch)
     rng = np.random.default_rng(3)
     B, S = 2, 16
     tokens = rng.integers(0, api.cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
@@ -93,6 +104,21 @@ def test_prefill_and_decode_logits_match_jax(dtype):
     td, tcache = api.decode_step(params, tcache, torch.from_numpy(nxt))
     np.testing.assert_allclose(bridge.to_numpy(td), np.asarray(jd), **TOL[dtype])
     np.testing.assert_array_equal(tcache["pos"].numpy(), plens + 1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_hidden_aux_loss_matches_jax(arch):
+    """The MoE aux loss averaged over layers, as the reference's scan gives it (0 for dense)."""
+    jcfg = jax_get_smoke(arch).replace(dtype="float32")
+    _, jparams, api, params = _models("float32", arch)
+    tokens = np.random.default_rng(6).integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
+    jh, _, jaux = jax.jit(lambda p, t: jax_transformer.forward_hidden(p, t, jcfg))(
+        jparams, jnp.asarray(tokens))
+    h, caches, aux = transformer.forward_hidden(params, torch.from_numpy(tokens), api.cfg)
+    assert caches is None and aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL["float32"])
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=1e-7)
+    assert (float(aux) > 0) == (api.cfg.family == "moe")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,8 +1,9 @@
 """The port's continuous batcher against the JAX package's, token for token.
 
-granite-8b smoke with float32 weights from ``repro``'s ``init_params``,
-carried across by ``repro_torch.bridge``. The decode cache is bf16 in both
-packages, so both round where the reference rounds.
+granite-8b (dense) and olmoe-1b-7b (MoE) smoke with float32 weights from
+``repro``'s ``init_params``, carried across by ``repro_torch.bridge``. The
+decode cache is bf16 in both packages, so both round where the reference
+rounds.
 """
 import numpy as np
 import pytest
@@ -30,12 +31,12 @@ REQUESTS = [([5, 9, 2, 7], MAX_NEW), ([1, 2, 3], MAX_NEW), ([11, 4, 8, 15, 16], 
             (list(range(3, 23)), 10)]
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_get_smoke("granite-8b").replace(dtype="float32")
+@pytest.fixture(scope="module", params=["granite-8b", "olmoe-1b-7b"])
+def models(request):
+    jcfg = jax_get_smoke(request.param).replace(dtype="float32")
     japi = jax_build(jcfg)
     jparams = japi.init_params(jax.random.PRNGKey(0))
-    api = build(get_smoke("granite-8b").replace(dtype="float32"), device="cpu")
+    api = build(get_smoke(request.param).replace(dtype="float32"), device="cpu")
     params = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     return japi, jparams, api, params
 
