@@ -8,20 +8,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   1. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
   2. kernels: each hand-written kernel against its plain PyTorch version at
-     the main paths' shapes (granite-8b's and olmoe-1b-7b's), in bf16 and
-     f32, with kernel, plain and library device times (``Timer``) and the
-     card's bound for the same work;
-  3. serving, once per model: granite-8b (dense) and olmoe-1b-7b (MoE) at
-     full width and depth in bf16, random weights from a seeded generator,
-     8 requests through ``ContinuousBatcher`` (4 slots, cache 1024); launch
-     counters, set to 0 just before each run and read just after, must equal
-     the expected counts; then a profile of one prefill and a few decode
-     steps by kernel group (and, for olmoe, the MoE layer's device time);
+     the main paths' shapes (granite-8b's, olmoe-1b-7b's, mamba2-130m's and
+     hymba-1.5b's), in bf16 and f32, with kernel, plain and library device
+     times (``Timer``) and the card's bound for the same work;
+  3. serving, once per model: granite-8b (dense), olmoe-1b-7b (MoE),
+     mamba2-130m (SSM) and hymba-1.5b (hybrid, cache 2048 so that its
+     sliding layers hold a ring of 1024) at full width and depth in bf16,
+     random weights from a seeded generator, 8 requests through
+     ``ContinuousBatcher`` (4 slots); launch counters, set to 0 just before
+     each run and read just after, must equal the expected counts; then a
+     profile of one prefill and a few decode steps by kernel group (and, for
+     olmoe, the MoE layer's device time);
   4. the models against the plain CPU reference, each at full width cut to
-     2 layers: prefill of a 128-token prompt plus 4 decode steps, on the card
-     through the kernels and on the CPU through the plain versions (granite
-     and olmoe; for olmoe also the share of tokens routed to another set of
-     experts); and a float32 granite served through the batcher on the card
+     2 layers: a prefill plus 4 decode steps, on the card through the kernels
+     and on the CPU through the plain versions (granite, olmoe and mamba2 on
+     a 128-token prompt, hymba on a 1300-token prompt in a 2048 cache with
+     layer 1 sliding; the logits, for olmoe also the share of tokens routed
+     to another set of experts, for mamba2 and hymba also the final SSM
+     state); and a float32 granite served through the batcher on the card
      (float32 queries against its bf16 cache) with the CPU batcher's tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -32,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,11 +51,22 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
-SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b")
+SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
+# hymba serves a 2048 cache, so its sliding layers (window 1024) hold a ring; its
+# prompts straddle the window: the prefill's window mask bites over 1024, the
+# trailing-window rule under it, and the decode ring wraps
+HYMBA_CACHE = 2048
+HYMBA_PROMPT_LENS = (96, 700, 1020, 1100, 1500, 2000, 300, 1800)
+# rmsnorm launches per layer: the block norms, plus the gated norm of an SSM mixer,
+# plus the hybrid's two branch output norms
+NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 5}
 # phase 4: the share of (token, layer) top-k expert sets that a bf16 run on the
 # card may route differently from the float32 CPU run (bf16 rounding moves
 # near-ties between the k-th and the next expert); float32 must route alike
 MAX_ROUTE_DIFF = {"bfloat16": 0.25, "float32": 0.0}
+# phase 4: the final SSM state, card against CPU (tests/test_kernels.py::_tol in float32;
+# in bf16 every activation of the stack is rounded, as for the logits' 5e-2)
+STATE_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 
 
 def log(msg: str) -> None:
@@ -65,13 +81,17 @@ class Timer:
 
     A sleep kernel holds the device while the host enqueues ``iters`` calls
     between two CUDA events, so the events see the calls back to back. The
-    calls rotate over ``COPIES`` sets of inputs, which at the main path's
-    shapes together exceed the 50 MB L2, so each call finds its inputs cold.
-    If the host takes longer to enqueue than the sleep lasts, the time is
-    flagged ``host-bound`` (it then includes host gaps).
+    calls rotate over sets of inputs: ``copies(nbytes)`` sets, enough that
+    together they move twice the 50 MB L2, so each call finds its inputs
+    cold. Past ``MAX_COPIES`` sets a shape stays small enough to stay in the
+    L2 (under ``L2_BYTES / MAX_COPIES`` a call: the decode rmsnorm, the
+    ragged test shapes); its time is then flagged ``L2-warm``. If the host
+    takes longer to enqueue than the sleep lasts, the time is flagged
+    ``host-bound`` (it then includes host gaps).
     """
 
-    COPIES = 4
+    L2_BYTES = 50e6
+    MIN_COPIES, MAX_COPIES = 4, 16
     SLEEP_CYCLES = 200_000_000
 
     def __init__(self, torch):
@@ -82,6 +102,11 @@ class Timer:
         end.record()
         torch.cuda.synchronize()
         self.sleep_ms = start.elapsed_time(end)
+
+    @classmethod
+    def copies(cls, nbytes: float) -> int:
+        """Input sets to rotate over for a call that moves ``nbytes``."""
+        return min(cls.MAX_COPIES, max(cls.MIN_COPIES, math.ceil(2 * cls.L2_BYTES / nbytes)))
 
     def ms(self, fns, iters: int = 24):
         """(ms per call, host_bound) for calls cycling over ``fns``."""
@@ -145,9 +170,9 @@ def phase_build():
     log(f"[build] total {time.perf_counter() - t0:.2f} s")
 
 
-def _check(name, got, want, dtype_name):
+def _check(name, got, want, dtype_name, tol=None):
     err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype_name]
+    tol = tol or TOL[dtype_name]
     ok = bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
     log(f"[kernels] {name}: max_abs_err {err:.3e} (tolerance rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -162,6 +187,8 @@ def phase_kernels(torch, timer: Timer):
     from repro_torch.kernels import flash_attention as kfl
     from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.models.transformer import _sliding_ring
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -172,23 +199,26 @@ def phase_kernels(torch, timer: Timer):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
 
     def record(entry, main: bool, name, case, make, nbytes, flops, dtype_name, op_type,
-               label=None):
+               label=None, tol=None):
         """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them;
-        ``dtype_name`` is the output's dtype (it sets the tolerance), ``op_type`` the
-        arithmetic's (it sets the peak rate of the bound)."""
+        ``dtype_name`` is the output's dtype (it sets the tolerance unless ``tol`` does),
+        ``op_type`` the arithmetic's (it sets the peak rate of the bound)."""
         label = label or dtype_name
-        sets = [make() for _ in range(Timer.COPIES)]
+        sets = [make() for _ in range(Timer.copies(nbytes))]
         kernel_fn, plain_fn, lib_fn = sets[0]
-        out = kernel_fn()
+        out, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        err = _check(f"{name} {case} {label}", out, plain_fn(), dtype_name)
+        if isinstance(out, tuple):   # several outputs (ssd: y and the final state), held together
+            out, want = (torch.cat([t.float().flatten() for t in ts]) for ts in (out, want))
+        err = _check(f"{name} {case} {label}", out, want, dtype_name, tol)
         (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
         l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
         b_ms, b_by = bound_ms(nbytes, flops, op_type)
-        flag = lambda hb: " (host-bound)" if hb else ""
+        warm = len(sets) * nbytes < Timer.L2_BYTES
+        flag = lambda hb: " (host-bound)" * hb + " (L2-warm)" * warm
         log(f"[kernels] {name} {case} {label}: kernel_ms {k_ms:.5f}{flag(k_hb)} "
             f"plain_ms {p_ms:.5f}{flag(p_hb)} "
-            f"library_ms {('%.5f' % l_ms) if l_ms is not None else 'null'}{flag(l_hb)} "
+            f"library_ms {('%.5f' % l_ms) + flag(l_hb) if l_ms is not None else 'null'} "
             f"bound_ms {b_ms:.5f} = {1e3 * b_ms:.2f} us ({b_by}: {nbytes / 1e6:.3f} MB, "
             f"{flops / 1e9:.4f} GFLOP)")
         if main:
@@ -307,6 +337,96 @@ def phase_kernels(torch, timer: Timer):
                    f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]", make,
                    (e * c * d + e * d * f + e * c * f) * size, 2.0 * e * c * d * f, dtn, dtn)
     rows.append(e_gmm)
+
+    # --- hymba's attention (G = 5, head_dim 64): the flash kernel fills 60 of its 64
+    # rows (5 heads x 12 positions); prefill at 2048 with the sliding window and
+    # without it; decode on a wrapped 1024-slot ring (window 1024) and on a global cache ---
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        size = torch.tensor([], dtype=dt).element_size()
+        for window in (1024, 0):
+            sq = HYMBA_CACHE
+            qp, kp = torch.arange(sq, device="cuda")[:, None], torch.arange(sq, device="cuda")[None]
+            allowed = (kp <= qp) & ((qp - kp < window) if window > 0 else True)
+
+            def make(window=window, dt=dt, allowed=allowed, sq=sq):
+                q, k, v = rnd((1, sq, 25, 64), dt), rnd((1, sq, 5, 64), dt), rnd((1, sq, 5, 64), dt)
+
+                def lib():
+                    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                          enable_gqa=True)
+
+                return (lambda: kfl.flash_attention(q, k, v, causal=True, window=window),
+                        lambda: kfl.plain(q, k, v, causal=True, window=window),
+                        lib if has_gqa else None)
+
+            record(e_fl, False, "flash_attention",
+                   f"hymba q[1,{sq},25,64] kv[1,{sq},5,64] causal window={window}", make,
+                   (2 * sq * 25 * 64 + 2 * sq * 5 * 64) * size, 4.0 * 25 * 64 * int(allowed.sum()),
+                   dtn, dtn)
+        # cur positions per row; the ring of 1024 slots holds positions cur-1023..cur at
+        # slot position % 1024 (empty slots -1), as the hybrid prefill and decode leave it
+        cur = torch.tensor([1500, 1100, 2000, 700], device="cuda", dtype=torch.int32)
+        for s_len, window in ((1024, 1024), (HYMBA_CACHE, 0)):
+            r = torch.arange(s_len, device="cuda")[None]
+            slot = (_sliding_ring(cur + 1, s_len)[1] if window
+                    else torch.where(r <= cur[:, None], r, -1).to(torch.int32))
+            valid = (slot >= 0) & (slot <= cur[:, None])
+            if window > 0:
+                valid &= cur[:, None] - slot < window
+
+            def make(window=window, dt=dt, valid=valid, slot=slot, s_len=s_len):
+                q, kc, vc = rnd((4, 25, 64), dt), rnd((4, s_len, 5, 64), dt), rnd((4, s_len, 5, 64), dt)
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                        attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+                return (lambda: kdec.decode_attention(q, kc, vc, slot, cur, window=window),
+                        lambda: kdec.plain(q, kc, vc, slot, cur, window=window),
+                        lib if has_gqa else None)
+
+            n_valid = int(valid.sum())
+            record(e_dec, False, "decode_attention",
+                   f"hymba q[4,25,64] {'ring' if window else 'global'} cache[4,{s_len},5,64] "
+                   f"window={window} valid_slots={n_valid}", make,
+                   2 * n_valid * 5 * 64 * size + 4 * 25 * 64 * 2 * size + (4 * s_len + 4) * 4,
+                   4.0 * 25 * 64 * n_valid, dtn, dtn)
+
+    # --- ssd: the prefill scans of mamba2 (x [1,1024,24,64], N = 128) and hymba
+    # (x [1,2048,50,64], N = 16), chunk 128, and tests/test_kernels.py:101-104's shapes ---
+    e_ssd = dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+                 replaces="src/repro/kernels/ssd_scan.py:91")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for what, b, s_len, h, p, n, chunk in (("mamba2", 1, 1024, 24, 64, 128, 128),
+                                               ("hymba", 1, 2048, 50, 64, 16, 128),
+                                               ("test", 2, 64, 3, 16, 8, 16),
+                                               ("test", 2, 128, 4, 32, 16, 32),
+                                               ("test", 2, 96, 2, 8, 4, 16)):
+            def make(b=b, s_len=s_len, h=h, p=p, n=n, chunk=chunk, dt=dt):
+                x = (rnd((b, s_len, h, p), torch.float32) * 0.5).to(dt)
+                a = -(rnd((b, s_len, h), torch.float32) * 0.3).abs()
+                bm = (rnd((b, s_len, n), torch.float32) * 0.5).to(dt)
+                cm = (rnd((b, s_len, n), torch.float32) * 0.5).to(dt)
+                return (lambda: kssd.ssd(x, a, bm, cm, chunk=chunk),
+                        lambda: kssd.plain(x, a, bm, cm, min(chunk, s_len)), None)
+
+            size = torch.tensor([], dtype=dt).element_size()
+            l = min(chunk, s_len)
+            nc = s_len // l
+            # x and y, b and c in x's dtype, a and the final state in float32
+            nbytes = (2 * b * s_len * h * p + 2 * b * s_len * n) * size + (b * s_len * h + b * h * p * n) * 4
+            # C·Bᵀ once per chunk (shared by the heads), then per (head, chunk) the three
+            # l·P-sized products: (L ⊙ C·Bᵀ)·X, C·hᵀ and Xᵀ·B. L is zero above the diagonal,
+            # so the two l x l products count the l(l+1)/2 causal pairs only
+            flops = b * nc * (l * (l + 1.0) * n + h * (l * (l + 1.0) * p + 4.0 * l * p * n))
+            # y and the final state, held together: float32 to tests/test_kernels.py:116-117's
+            # 1e-3, bf16 (y rounded to bf16) to 3e-2
+            record(e_ssd, dtn == "bfloat16" and what == "mamba2", "ssd",
+                   f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make, nbytes,
+                   flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
+    rows.append(e_ssd)
     return rows
 
 
@@ -336,18 +456,20 @@ def phase_serve(torch, arch: str, timer: Timer):
         return out
 
     rng = np.random.default_rng(0)
-    lens = rng.integers(64, 513, size=SERVE_REQUESTS)
+    cache_len = HYMBA_CACHE if cfg.family == "hybrid" else SERVE_CACHE
+    lens = (HYMBA_PROMPT_LENS if cfg.family == "hybrid"
+            else rng.integers(64, 513, size=SERVE_REQUESTS))
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
 
     # warm-up (cuBLAS handles, allocator): one short request on its own batcher
-    warm = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    warm = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=cache_len)
     warm.submit(Request(-1, prompts[0][:16], max_new_tokens=2))
     warm.run_to_completion()
     del warm
     torch.cuda.synchronize()
 
     batcher = ContinuousBatcher(dataclasses.replace(api, decode_step=timed_decode), params,
-                                num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+                                num_slots=SERVE_SLOTS, cache_len=cache_len)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_start = time.perf_counter()
@@ -367,16 +489,17 @@ def phase_serve(torch, arch: str, timer: Timer):
             raise AssertionError(f"{arch} request {r.rid}: bad output {r.generated}")
         log(f"[serve] {arch} request {r.rid}: prompt {len(r.prompt)} tokens, TTFT "
             f"{1e3 * (r.first_token_at - t_start):.1f} ms, first tokens {r.generated[:4]}")
-    prefills, steps = len(reqs), batcher.steps
-    moe = cfg.family == "moe"
-    expected = {"rmsnorm": (2 * cfg.num_layers + 1) * (prefills + steps),
-                "flash_attention": cfg.num_layers * prefills,
-                "decode_attention": cfg.num_layers * steps,
-                "moe_gmm": 3 * cfg.num_layers * (prefills + steps) if moe else 0}
-    log(f"[serve] {arch}: {prefills} prefills, {steps} decode steps, {decode_tokens} decode "
-        f"tokens in {decode_s[0]:.3f} s of decode steps: {decode_tokens / decode_s[0]:.1f} "
-        f"tokens/s, {1e3 * decode_s[0] / steps:.2f} ms/step; wall {wall:.3f} s; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prefills, steps, L = len(reqs), batcher.steps, cfg.num_layers
+    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
+    expected = {"rmsnorm": (NORMS_PER_LAYER[cfg.family] * L + 1) * (prefills + steps),
+                "flash_attention": L * prefills if attn else 0,
+                "decode_attention": L * steps if attn else 0,
+                "moe_gmm": 3 * L * (prefills + steps) if cfg.family == "moe" else 0,
+                "ssd": L * prefills if ssm else 0}
+    log(f"[serve] {arch}: cache {cache_len}, {prefills} prefills, {steps} decode steps, "
+        f"{decode_tokens} decode tokens in {decode_s[0]:.3f} s of decode steps: "
+        f"{decode_tokens / decode_s[0]:.1f} tokens/s, {1e3 * decode_s[0] / steps:.2f} ms/step; "
+        f"wall {wall:.3f} s; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, n in expected.items():
         log(f"[serve] {arch} launches {name}: {counts[name]} (expected {n})")
     if counts != expected:
@@ -384,14 +507,14 @@ def phase_serve(torch, arch: str, timer: Timer):
 
     # where a prefill's and a decode step's device time goes (after the counts were read)
     prompt = prompts[0]
-    tokens = torch.tensor([prompt + [0] * (SERVE_CACHE - len(prompt))], dtype=torch.int32,
+    tokens = torch.tensor([prompt + [0] * (cache_len - len(prompt))], dtype=torch.int32,
                           device="cuda")
     plens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     step_tokens = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
     profile_breakdown(torch, f"{arch} prefill", 1, lambda: api.prefill(params, tokens, plens))
     profile_breakdown(torch, f"{arch} decode step", 4,
                       lambda: api.decode_step(params, batcher.cache, step_tokens))
-    if moe:
+    if cfg.family == "moe":
         moe_layer_times(torch, timer, cfg, params)
     return counts
 
@@ -423,6 +546,7 @@ def moe_layer_times(torch, timer: Timer, cfg, params):
 KERNEL_GROUPS = (("rmsnorm kernel", ("rmsnorm_kernel",)), ("flash kernel", ("flash_kernel",)),
                  ("decode kernel", ("decode_kernel",)),
                  ("moe_gmm kernel", ("gmm_bf16_kernel", "gmm_f32_kernel")),
+                 ("ssd kernel", ("ssd_kernel",)),
                  ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
@@ -483,17 +607,24 @@ def phase_reference(torch):
 
 def reference_model(torch, arch: str):
     """``arch`` at full width cut to 2 layers, on the card (float32 and bf16, through
-    the kernels) against the CPU's float32 plain run; for MoE, also the share of
-    (token, layer) top-k expert sets that the card routed differently."""
+    the kernels) against the CPU's float32 plain run: the logits of a prefill and 4
+    decode steps; for MoE, also the share of (token, layer) top-k expert sets that
+    the card routed differently; for SSM and hybrid, also the final SSM state.
+
+    hymba keeps layer 0 global and lets layer 1 slide, and runs a 1300-token prompt
+    in a 2048 cache: the window (1024) bites in the prefill and in the decode ring."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     from repro_torch.models.model import build
 
     _no_tf32(torch)
     cfg = get_config(arch).replace(num_layers=2)
+    plen, n_dec, seq = 128, 4, 136   # 8 pad tokens after the prompt
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(global_attn_layers=(0,))
+        plen, seq = 1300, HYMBA_CACHE
     rng = np.random.default_rng(1)
-    plen, n_dec, pad = 128, 4, 8
-    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, plen + pad)), dtype=torch.int32)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, seq)), dtype=torch.int32)
     plens = torch.tensor([plen], dtype=torch.int32)
     gpu = build(cfg, device="cuda")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -510,6 +641,7 @@ def reference_model(torch, arch: str):
         return out
 
     def run(api, p, device, dtype):
+        """(logits of the prefill and each decode step, the final SSM state h or None)."""
         routes.append([])
         p = cast_params(p, api.param_template, device, dtype)
         logits, cache = api.prefill(p, prompt.to(device), plens.to(device))
@@ -517,20 +649,20 @@ def reference_model(torch, arch: str):
         for tok in forced:
             logits, cache = api.decode_step(p, cache, torch.tensor([tok], dtype=torch.int32, device=device))
             outs.append(logits.float().cpu())
-        return torch.cat(outs)
+        return torch.cat(outs), (cache["ssm"]["h"].cpu() if "ssm" in cache else None)
 
     moe._route = recording_route
     try:
         with torch.inference_mode():
-            want = run(cpu, params_cpu, "cpu", torch.float32)
+            want, want_h = run(cpu, params_cpu, "cpu", torch.float32)
             want_routes = routes[-1]
             for dtn, dt, rtol, atol in (("float32", torch.float32, 2e-3, 2e-3),
                                         ("bfloat16", torch.bfloat16, 5e-2, 5e-1)):
-                got = run(gpu, params, "cuda", dt)
+                got, got_h = run(gpu, params, "cuda", dt)
                 err = (got - want).abs().max().item()
                 top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
                 ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all()) and top1 >= 0.6
-                route_note = ""
+                note = ""
                 if cfg.family == "moe":
                     if len(routes[-1]) != len(want_routes):
                         raise AssertionError(f"{arch}: {len(routes[-1])} routing calls on the card, "
@@ -539,12 +671,18 @@ def reference_model(torch, arch: str):
                     total = sum(w.shape[0] for w in want_routes)
                     share = differ / total
                     ok = ok and share <= MAX_ROUTE_DIFF[dtn]
-                    route_note = (f", top-{cfg.experts_per_token} expert sets differing in {differ} of "
-                                  f"{total} (token, layer) rows = {share:.4f} (need <= "
-                                  f"{MAX_ROUTE_DIFF[dtn]})")
-                log(f"[reference] {arch} 2-layer full width, card {dtn} via kernels vs CPU float32 "
-                    f"plain: max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), top-1 agreement "
-                    f"{top1:.2f} over {got.shape[0]} positions (need >= 0.6){route_note} "
+                    note = (f", top-{cfg.experts_per_token} expert sets differing in {differ} of "
+                            f"{total} (token, layer) rows = {share:.4f} (need <= "
+                            f"{MAX_ROUTE_DIFF[dtn]})")
+                if want_h is not None:   # |h| < 1 here: the logits' atol would say nothing
+                    h_err = (got_h - want_h).abs().max().item()
+                    h_tol = STATE_TOL[dtn]
+                    ok = ok and bool(((got_h - want_h).abs() <= h_tol + h_tol * want_h.abs()).all())
+                    note += (f", final SSM state {tuple(want_h.shape)} max_abs_err {h_err:.3e} "
+                             f"(rtol=atol={h_tol}; |h| max {want_h.abs().max().item():.3e})")
+                log(f"[reference] {arch} 2-layer full width, prompt {plen} in {seq}, card {dtn} via "
+                    f"kernels vs CPU float32 plain: max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), "
+                    f"top-1 agreement {top1:.2f} over {got.shape[0]} positions (need >= 0.6){note} "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{arch}: 2-layer model on the card disagrees with the CPU ({dtn})")

@@ -3,8 +3,10 @@
 A copy of the fields of ``repro.config.model.ModelConfig`` that the ported
 families read:
 
-  dense -- decoder-only transformer (llama-style: RMSNorm, SwiGLU, RoPE, GQA)
-  moe   -- the dense skeleton with a top-k routed MoE FFN in place of SwiGLU
+  dense  -- decoder-only transformer (llama-style: RMSNorm, SwiGLU, RoPE, GQA)
+  moe    -- the dense skeleton with a top-k routed MoE FFN in place of SwiGLU
+  ssm    -- attention-free Mamba2 (SSD) stack
+  hybrid -- Hymba-style parallel attention + SSM heads per block
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -25,7 +27,7 @@ class ModelConfig:
 
     num_layers: int
     d_model: int
-    num_heads: int            # query heads
+    num_heads: int            # query heads (0 for attention-free)
     num_kv_heads: int         # KV heads for GQA (== num_heads for MHA)
     d_ff: int                 # SwiGLU hidden dim (per-expert dim for MoE)
     vocab_size: int
@@ -43,11 +45,35 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     shared_expert_d_ff: int = 0   # a dense SwiGLU beside the experts; 0 -> none
 
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0        # per-head state dim N
+    ssm_expand: int = 2       # d_inner = expand * d_model
+    ssm_head_dim: int = 64
+    ssm_conv_dim: int = 4     # depthwise conv kernel width
+    ssm_chunk: int = 128      # SSD chunk length
+
+    # --- hybrid (attention + SSM in parallel) ---
+    sliding_window: int = 0   # 0 -> full attention
+    global_attn_layers: tuple = ()  # layer indices using full attention
+
     @property
     def resolved_head_dim(self) -> int:
-        return self.head_dim or self.d_model // self.num_heads
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner dim."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def _attn_params(self) -> int:
+        if self.num_heads == 0:
+            return 0
         dh = self.resolved_head_dim
         q = self.d_model * self.num_heads * dh
         kv = 2 * self.d_model * self.num_kv_heads * dh
@@ -61,10 +87,23 @@ class ModelConfig:
         shared = 3 * self.d_model * self.shared_expert_d_ff
         return router + experts + shared
 
+    def _ssm_params(self) -> int:
+        """The reference's count, which leaves out the conv bias (d_inner + 2N)."""
+        d_in, h, n = self.d_inner, self.ssm_heads, self.ssm_state
+        in_proj = self.d_model * (2 * d_in + 2 * n + h)   # -> [z, x, B, C, dt] (ngroups = 1)
+        conv = self.ssm_conv_dim * (d_in + 2 * n)
+        extras = 3 * h                                     # A_log, D, dt_bias
+        return in_proj + conv + extras + d_in + d_in * self.d_model   # + norm, out_proj
+
     def layer_params(self) -> int:
-        """Parameters in one block: attention, SwiGLU or MoE FFN, and the two norms."""
+        """Parameters in one block, norms included."""
+        if self.family == "ssm":
+            return self._ssm_params() + self.d_model      # a single pre-norm
         ffn = self._moe_ffn_params() if self.family == "moe" else 3 * self.d_model * self.d_ff
-        return self._attn_params() + ffn + 2 * self.d_model
+        n = self._attn_params() + ffn + 2 * self.d_model
+        if self.family == "hybrid":
+            n += self._ssm_params() + 2 * self.d_model    # the per-branch output norms
+        return n
 
     def num_params(self) -> int:
         """Total parameter count N."""
@@ -79,9 +118,15 @@ class ModelConfig:
 def validate(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not ported; ported: {FAMILIES}")
-    if cfg.num_heads <= 0 or cfg.num_kv_heads <= 0:
-        raise ValueError("decoder models need query and KV heads")
-    if cfg.num_heads % cfg.num_kv_heads:
-        raise ValueError("GQA requires num_heads % num_kv_heads == 0")
+    if cfg.family != "ssm":
+        if cfg.num_heads <= 0 or cfg.num_kv_heads <= 0:
+            raise ValueError("models with attention need query and KV heads")
+        if cfg.num_heads % cfg.num_kv_heads:
+            raise ValueError("GQA requires num_heads % num_kv_heads == 0")
     if cfg.family == "moe" and not (cfg.num_experts > 0 and cfg.experts_per_token > 0):
         raise ValueError("moe models need num_experts > 0 and experts_per_token > 0")
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.ssm_state <= 0:
+            raise ValueError("ssm and hybrid models need ssm_state > 0")
+        if cfg.d_inner % cfg.ssm_head_dim:
+            raise ValueError("d_inner must be a multiple of ssm_head_dim")

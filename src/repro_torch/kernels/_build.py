@@ -55,6 +55,11 @@ SIGNATURES = {
         "moe_gmm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
         "moe_gmm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "ssd": {
+        # x, a, b, c, y, h_final, b, s, h, p, n, chunk, stream
+        "ssd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "ssd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 

@@ -12,9 +12,10 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd as _ssd
 
 _KERNELS = {"rmsnorm": _rms, "flash_attention": _flash, "decode_attention": _decode,
-            "moe_gmm": _gmm}
+            "moe_gmm": _gmm, "ssd": _ssd}
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):
@@ -42,6 +43,13 @@ def moe_gmm(xe, we):
     if xe.device.type == "cpu":
         return _gmm.plain(xe, we)
     return _gmm.moe_gmm(xe, we)
+
+
+def ssd(x, a, b, c, *, chunk: int):
+    """(y, final state); the chunk length is ``min(chunk, S)``, as in the Pallas kernel."""
+    if x.device.type == "cpu":
+        return _ssd.plain(x, a, b, c, min(chunk, x.shape[1]))
+    return _ssd.ssd(x, a, b, c, chunk=chunk)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -19,7 +19,7 @@ import torch
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones | embed
+    init: str = "normal"       # normal | zeros | ones | embed | ssm_a
     dtype: Optional[str] = None  # None -> model default
 
     def with_layers(self, num_layers: int) -> "ParamSpec":
@@ -79,8 +79,8 @@ def init_params(template, generator: torch.Generator, device="cuda",
     One seed is drawn from ``generator``; each leaf then gets its own
     generator seeded from it and from the crc32 of the leaf's path, so adding
     a parameter does not change the others. Normal leaves are fan-in scaled
-    truncated normals, ``embed`` is N(0, 0.02), ``ones``/``zeros`` are
-    constants. Layer-stacked leaves are drawn one layer at a time, which
+    truncated normals, ``embed`` is N(0, 0.02), ``ssm_a`` (Mamba2's A_log) is
+    log(U[1, 16]) drawn in float32, ``ones``/``zeros`` are constants. Layer-stacked leaves are drawn one layer at a time, which
     keeps the float32 scratch to one layer.
     """
     dev = resolve_device(device)
@@ -101,6 +101,8 @@ def init_params(template, generator: torch.Generator, device="cuda",
             tmp = torch.empty(part.shape, dtype=torch.float32, device=dev)
             if spec.init == "embed":
                 tmp.normal_(0.0, 0.02, generator=gen)
+            elif spec.init == "ssm_a":
+                tmp.uniform_(1.0, 16.0, generator=gen).log_()
             else:  # fan-in scaled truncated normal
                 _truncated_normal_(tmp, gen)
                 tmp.mul_(1.0 / math.sqrt(max(1, _fan_in(spec.shape))))

@@ -1,8 +1,9 @@
 """Model API: ``build(cfg, device)`` returns a ``ModelApi`` of plain functions.
 
-Counterpart of ``repro.models.model`` for the dense and MoE families. The
-device is fixed at ``build``: ``init_params`` and ``init_cache`` allocate
-there, and it is ``cuda`` unless the caller passes ``device="cpu"``.
+Counterpart of ``repro.models.model`` for the dense, MoE, SSM and hybrid
+families. The device is fixed at ``build``: ``init_params`` and
+``init_cache`` allocate there, and it is ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 

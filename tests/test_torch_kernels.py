@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as kfl  # noqa: E402
 from repro_torch.kernels import moe_gmm as kgmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
 
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -39,7 +40,7 @@ def _counters_stay_zero():
     ops.reset_launch_counts()
     yield
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                   "moe_gmm": 0}
+                                   "moe_gmm": 0, "ssd": 0}
 
 
 # ------------------------------------------------------------- rmsnorm
@@ -155,6 +156,64 @@ def test_moe_gmm_plain_matches_pallas(e, c, d, f, dtype):
                                atol=5e-1 if dtype == "bfloat16" else 1e-2)
 
 
+# ------------------------------------------------------------------ ssd
+def _ssd_inputs(rng, b, s, h, p, n, dtype="float32"):
+    """tests/test_kernels.py::test_ssd_kernel's distributions: x, b, c ~ N(0, 0.25)
+    in ``dtype``, a = -|N(0, 1)| * 0.3 in float32; as JAX arrays and CPU tensors."""
+    def pair(shape, dt, fn):
+        j = jnp.asarray(fn(rng.standard_normal(shape)).astype(np.float32), DTYPES[dt])
+        return j, to_tensor(np.asarray(j), "cpu")
+    return (pair((b, s, h, p), dtype, lambda v: v * 0.5), pair((b, s, h), "float32", lambda v: -np.abs(v) * 0.3),
+            pair((b, s, n), dtype, lambda v: v * 0.5), pair((b, s, n), dtype, lambda v: v * 0.5))
+
+
+@pytest.mark.parametrize("s,h,p,n,chunk", [
+    (64, 3, 16, 8, 16),
+    (128, 4, 32, 16, 32),
+    (96, 2, 8, 4, 16),
+])
+def test_ssd_plain_matches_pallas(s, h, p, n, chunk):
+    """tests/test_kernels.py:101-104's shapes and 1e-3 tolerance, through ``ops.ssd``."""
+    (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(np.random.default_rng(8), 2, s, h, p, n)
+    yj, hj = jops.ssd(xj, aj, bj, cj, chunk=chunk, interpret=True, use_pallas=True)
+    y, hf = ops.ssd(xt, at, bt, ct, chunk=chunk)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (2, s, h, p)
+    assert hf.dtype == torch.float32 and tuple(hf.shape) == (2, h, p, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hj), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (64, 64)])
+def test_ssd_plain_matches_sequential(s, chunk):
+    """tests/test_ssm_moe.py:19-30: the chunked form against the O(S) recurrence, 1e-4."""
+    (_, xt), (_, at), (_, bt), (_, ct) = _ssd_inputs(np.random.default_rng(9), 2, s, 3, 8, 4)
+    y1, h1 = kssd.plain(xt, at, bt, ct, chunk)
+    y2, h2 = kssd.sequential(xt, at, bt, ct)
+    np.testing.assert_allclose(y1.numpy(), y2.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h1.numpy(), h2.numpy(), rtol=1e-4, atol=1e-4)
+    # an initial state carries through both forms alike
+    h0 = torch.from_numpy(np.random.default_rng(10).standard_normal(h1.shape).astype(np.float32))
+    y3, h3 = kssd.plain(xt, at, bt, ct, chunk, h0)
+    y4, h4 = kssd.sequential(xt, at, bt, ct, h0)
+    np.testing.assert_allclose(y3.numpy(), y4.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h3.numpy(), h4.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,h,p,n,chunk", [(64, 3, 16, 8, 16), (96, 2, 8, 4, 16)])
+def test_ssd_plain_bf16_matches_jax(s, h, p, n, chunk):
+    """bf16 x, b, c (a stays float32): y comes back bf16, the state float32."""
+    from repro.kernels import ref as jref
+
+    (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(np.random.default_rng(11), 2, s, h, p, n,
+                                                         "bfloat16")
+    yj, hj = jref.ssd(xj, aj, bj, cj, chunk)
+    y, hf = ops.ssd(xt, at, bt, ct, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
+    assert np.asarray(yj).dtype.name == "bfloat16"
+    np.testing.assert_allclose(to_numpy(y), np.asarray(yj, np.float32), **_tol("bfloat16"))
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hj), **_tol("bfloat16"))
+
+
 # ------------------------------------------- the wrappers take CUDA only
 @pytest.mark.parametrize("call", [
     lambda t: krms.rmsnorm(t(4, 32), t(32)),
@@ -163,7 +222,8 @@ def test_moe_gmm_plain_matches_pallas(e, c, d, f, dtype):
                                     torch.zeros(1, 8, dtype=torch.int32),
                                     torch.zeros(1, dtype=torch.int32)),
     lambda t: kgmm.moe_gmm(t(2, 8, 16), t(2, 16, 24)),
-], ids=["rmsnorm", "flash_attention", "decode_attention", "moe_gmm"])
+    lambda t: kssd.ssd(t(1, 16, 2, 8), t(1, 16, 2), t(1, 16, 4), t(1, 16, 4), chunk=16),
+], ids=["rmsnorm", "flash_attention", "decode_attention", "moe_gmm", "ssd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper never falls back to the plain version: a CPU tensor raises."""
     with pytest.raises(ValueError, match="CUDA"):

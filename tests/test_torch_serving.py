@@ -1,9 +1,10 @@
 """The port's continuous batcher against the JAX package's, token for token.
 
-granite-8b (dense) and olmoe-1b-7b (MoE) smoke with float32 weights from
-``repro``'s ``init_params``, carried across by ``repro_torch.bridge``. The
-decode cache is bf16 in both packages, so both round where the reference
-rounds.
+granite-8b (dense), olmoe-1b-7b (MoE), mamba2-130m (SSM) and hymba-1.5b
+(hybrid) smoke with float32 weights from ``repro``'s ``init_params``,
+carried across by ``repro_torch.bridge``. The decode cache's K/V are bf16 in
+both packages, so both round where the reference rounds; the SSM conv
+buffer starts bf16 and turns float32 at the first decode step in both.
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro.serving.batching import ContinuousBatcher as JaxBatcher  # noqa: E402
 from repro.serving.batching import Request as JaxRequest  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 from repro_torch.serving.batching import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.serving.engine import build_serve_steps, generate  # noqa: E402
@@ -26,12 +28,13 @@ from repro_torch.serving.engine import build_serve_steps, generate  # noqa: E402
 CACHE_LEN, MAX_NEW = 24, 6
 # tests/test_serving.py:57-73, plus one request that runs past the cache
 # (its 20 prompt tokens + 10 new ones overwrite the last slot, as the
-# reference's min(pos, S - 1) does)
+# reference's min(pos, S - 1) does; hymba's sliding ring, min(32, 24) = 24
+# slots, wraps)
 REQUESTS = [([5, 9, 2, 7], MAX_NEW), ([1, 2, 3], MAX_NEW), ([11, 4, 8, 15, 16], MAX_NEW),
             (list(range(3, 23)), 10)]
 
 
-@pytest.fixture(scope="module", params=["granite-8b", "olmoe-1b-7b"])
+@pytest.fixture(scope="module", params=["granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b"])
 def models(request):
     jcfg = jax_get_smoke(request.param).replace(dtype="float32")
     japi = jax_build(jcfg)
@@ -56,14 +59,20 @@ def test_batcher_token_streams_equal_jax(models):
     assert all(len(got[rid]) == n for rid, (_, n) in enumerate(REQUESTS))
     assert batcher.steps == jbatcher._steps
     # the final shared cache: every slot decoded each step (pos advanced for
-    # empty ones too), the last request's tail written at min(pos, S - 1)
-    np.testing.assert_array_equal(batcher.cache["pos"].numpy(), np.asarray(jbatcher.cache["pos"]))
-    np.testing.assert_array_equal(batcher.cache["attn"]["slot_pos"].numpy(),
-                                  np.asarray(jbatcher.cache["attn"]["slot_pos"]))
-    for leaf in ("k", "v"):
-        np.testing.assert_allclose(bridge.to_numpy(batcher.cache["attn"][leaf]),
-                                   np.asarray(jbatcher.cache["attn"][leaf], np.float32),
-                                   rtol=3e-2, atol=3e-2)  # bf16 cache: tests/test_kernels.py::_tol
+    # empty ones too), the last request's tail written at min(pos, S - 1) or
+    # around the ring; the same tree, dtypes and int leaves
+    jflat = {"/".join(str(p.key) for p in path): leaf
+             for path, leaf in jax.tree_util.tree_flatten_with_path(jbatcher.cache)[0]}
+    flat = dict(tree_items(batcher.cache))
+    assert sorted(flat) == sorted(jflat)
+    for path, t in flat.items():
+        want = np.asarray(jflat[path])
+        assert str(t.dtype).removeprefix("torch.") == want.dtype.name, path
+        if want.dtype == np.int32:
+            np.testing.assert_array_equal(t.numpy(), want, err_msg=path)
+        else:   # bf16 cache: tests/test_kernels.py::_tol
+            np.testing.assert_allclose(bridge.to_numpy(t), want.astype(np.float32), rtol=3e-2,
+                                       atol=3e-2, err_msg=path)
 
 
 def test_generate_equals_batcher(models):
