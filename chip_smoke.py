@@ -220,7 +220,8 @@ def phase_kernels(torch, timer: Timer):
             f"plain_ms {p_ms:.5f}{flag(p_hb)} "
             f"library_ms {('%.5f' % l_ms) + flag(l_hb) if l_ms is not None else 'null'} "
             f"bound_ms {b_ms:.5f} = {1e3 * b_ms:.2f} us ({b_by}: {nbytes / 1e6:.3f} MB, "
-            f"{flops / 1e9:.4f} GFLOP)")
+            f"{flops / 1e9:.4f} GFLOP); share of bound {b_ms / k_ms:.4f}"
+            f"{'' if l_ms is None else f', kernel/library {k_ms / l_ms:.2f}x'}")
         if main:
             entry.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=l_ms)
@@ -278,23 +279,31 @@ def phase_kernels(torch, timer: Timer):
     e_dec = dict(name="decode_attention", route="cuda",
                  source="src/repro_torch/csrc/decode_attention.cu",
                  replaces="src/repro/kernels/decode_attention.py:85")
-    b, s = 4, 1024
+    s = 1024
     fill = torch.tensor([1024, 700, 300, 64], device="cuda", dtype=torch.int32)
     ar = torch.arange(s, device="cuda", dtype=torch.int32)[None]
     slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
     slot[1, 5:9] = -1  # holes inside a filled range
     cur = (fill - 1).to(torch.int32)
-    for qdt, cdt, hq, hkv, window in (
-            (torch.bfloat16, torch.bfloat16, 32, 8, 0), (torch.bfloat16, torch.bfloat16, 32, 8, 128),
-            (torch.bfloat16, torch.bfloat16, 16, 16, 0), (torch.float32, torch.float32, 32, 8, 0),
-            (torch.float32, torch.float32, 32, 8, 128), (torch.float32, torch.float32, 16, 16, 0),
-            (torch.float32, torch.bfloat16, 32, 8, 0)):
+    slot_none = slot.clone()
+    slot_none[3] = -1  # row 3 has no valid slot: the plain version's mean of V over all S
+    bf, f32 = torch.bfloat16, torch.float32
+    for qdt, cdt, hq, hkv, window, slot_, cur_, what in (
+            (bf, bf, 32, 8, 0, slot, cur, ""), (bf, bf, 32, 8, 128, slot, cur, ""),
+            (bf, bf, 16, 16, 0, slot, cur, ""), (f32, f32, 32, 8, 0, slot, cur, ""),
+            (f32, f32, 32, 8, 128, slot, cur, ""), (f32, f32, 16, 16, 0, slot, cur, ""),
+            (f32, bf, 32, 8, 0, slot, cur, ""),
+            (bf, bf, 32, 8, 0, slot_none, cur, " row 3 without a valid slot"),
+            # batch 1, as a serverless request decodes alone: split_plan matters most here
+            (bf, bf, 32, 8, 0, slot[:1].contiguous(), cur[:1].contiguous(), " batch 1")):
+        b = slot_.shape[0]
         cdtn = str(cdt).removeprefix("torch.")
-        valid = (slot >= 0) & (slot <= cur[:, None])
+        valid = (slot_ >= 0) & (slot_ <= cur_[:, None])
         if window > 0:
-            valid &= cur[:, None] - slot < window
+            valid &= cur_[:, None] - slot_ < window
 
-        def make(window=window, qdt=qdt, cdt=cdt, valid=valid, hq=hq, hkv=hkv):
+        def make(window=window, qdt=qdt, cdt=cdt, valid=valid, hq=hq, hkv=hkv, b=b, slot_=slot_,
+                 cur_=cur_):
             q, kc, vc = rnd((b, hq, 128), qdt), rnd((b, s, hkv, 128), cdt), rnd((b, s, hkv, 128), cdt)
 
             def lib():
@@ -302,19 +311,22 @@ def phase_kernels(torch, timer: Timer):
                     q[:, :, None].to(cdt), kc.transpose(1, 2), vc.transpose(1, 2),
                     attn_mask=valid[:, None, None, :], enable_gqa=True)
 
-            return (lambda: kdec.decode_attention(q, kc, vc, slot, cur, window=window),
-                    lambda: kdec.plain(q, kc, vc, slot, cur, window=window),
+            return (lambda: kdec.decode_attention(q, kc, vc, slot_, cur_, window=window),
+                    lambda: kdec.plain(q, kc, vc, slot_, cur_, window=window),
                     lib if has_gqa else None)
 
-        n_valid = int(valid.sum())  # this run's data: only valid slots need K and V
+        # this run's data: only valid slots need K and V; a row without one, V's S slots
+        n_valid, n_none = int(valid.sum()), int((~valid.any(dim=1)).sum())
         qsize, csize = (torch.tensor([], dtype=t).element_size() for t in (qdt, cdt))
-        nbytes = 2 * n_valid * hkv * 128 * csize + b * hq * 128 * (qsize + csize) + (b * s + b) * 4
+        nbytes = ((2 * n_valid + s * n_none) * hkv * 128 * csize + b * hq * 128 * (qsize + csize)
+                  + (b * s + b) * 4)
         types = cdtn if qdt == cdt else f"float32 q, {cdtn} cache"
-        record(e_dec, cdtn == "bfloat16" and qdt == cdt and hq == 32 and window == 0,
+        record(e_dec, cdtn == "bfloat16" and qdt == cdt and hq == 32 and window == 0 and not what,
                "decode_attention",
-               f"q[4,{hq},128] cache[4,1024,{hkv},128] window={window} valid_slots={n_valid}",
-               make, nbytes, 4.0 * hq * 128 * n_valid, cdtn, "float32" if qdt != cdt else cdtn,
-               label=types)
+               f"q[{b},{hq},128] cache[{b},1024,{hkv},128] window={window} valid_slots={n_valid}"
+               f"{what} splits={kdec.split_plan(b, hkv, s, hq // hkv, csize, 128)}",
+               make, nbytes, 4.0 * hq * 128 * n_valid + hkv * 128 * s * n_none, cdtn,
+               "float32" if qdt != cdt else cdtn, label=types)
     rows.append(e_dec)
 
     # --- moe_gmm: olmoe's expert products at prefill (C = 160) and decode (C = 8), and a
@@ -338,13 +350,13 @@ def phase_kernels(torch, timer: Timer):
                    (e * c * d + e * d * f + e * c * f) * size, 2.0 * e * c * d * f, dtn, dtn)
     rows.append(e_gmm)
 
-    # --- hymba's attention (G = 5, head_dim 64): the flash kernel fills 60 of its 64
-    # rows (5 heads x 12 positions); prefill at 2048 with the sliding window and
-    # without it; decode on a wrapped 1024-slot ring (window 1024) and on a global cache ---
+    # --- hymba's attention (G = 5, head_dim 64): bf16 flash runs on the tensor cores, one
+    # query head per tile; float32 on the CUDA cores, 60 of its 64 rows filled (5 heads x
+    # 12 positions); prefill at 2048 with the sliding window and without it, and a ragged
+    # Sq; decode on a wrapped 1024-slot ring (window 1024) and on a global cache ---
     for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         size = torch.tensor([], dtype=dt).element_size()
-        for window in (1024, 0):
-            sq = HYMBA_CACHE
+        for sq, window in ((HYMBA_CACHE, 1024), (HYMBA_CACHE, 0), (1000, 0)):  # 1000: ragged Sq
             qp, kp = torch.arange(sq, device="cuda")[:, None], torch.arange(sq, device="cuda")[None]
             allowed = (kp <= qp) & ((qp - kp < window) if window > 0 else True)
 

@@ -31,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, out, b, sq, sk, hq, hkv, dh, scale, causal, window, stream
+_FLASH = (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P)
+# q, k, v, slot_pos, cur_pos, out, float32 workspace, b, s, hq, hkv, dh, scale, window,
+# nsplit, split_slots, stream
+_DECODE = (_P,) * 7 + (_I,) * 5 + (_F, _I, _I, _I, _P)
 # C signature of every entry point, by library.
 SIGNATURES = {
     "rmsnorm": {
@@ -39,16 +44,14 @@ SIGNATURES = {
         "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
     },
     "decode_attention": {
-        # q, k, v, slot_pos, cur_pos, out, b, s, hq, hkv, dh, scale, window, stream
-        "decode_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-        "decode_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-        # float32 q against a bf16 cache, bf16 out
-        "decode_attention_f32q_bf16kv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        "decode_attention_f32": _DECODE,
+        "decode_attention_bf16": _DECODE,
+        "decode_attention_f32q_bf16kv": _DECODE,  # float32 q against a bf16 cache, bf16 out
     },
     "flash_attention": {
-        # q, k, v, out, b, sq, sk, hq, hkv, dh, scale, causal, window, stream
-        "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-        "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        "flash_attention_f32": _FLASH,
+        "flash_attention_bf16": _FLASH,
+        "flash_attention_bf16_wgmma": _FLASH,  # bf16 on the tensor cores, head_dim 64 or 128
     },
     "moe_gmm": {
         # xe, we, out, e, c, d, f, stream
