@@ -329,25 +329,57 @@ def phase_kernels(torch, timer: Timer):
                "float32" if qdt != cdt else cdtn, label=types)
     rows.append(e_dec)
 
-    # --- moe_gmm: olmoe's expert products at prefill (C = 160) and decode (C = 8), and a
-    # ragged shape (tests/test_kernels.py:120) ---
+    # --- moe_gmm: olmoe's expert products at prefill (C = 160) and decode (C = 8) with every
+    # row live; decode routed as the serving path routes it (top-8 of 64 experts for 4
+    # tokens: live = each expert's assignments, about 25 experts hold one); a prefill whose
+    # routing leaves expert 0 empty; a ragged shape (tests/test_kernels.py:120), with every
+    # row live and in two groups whose live counts include 0 and C; and the row tiles the
+    # served shapes do not use ---
     e_gmm = dict(name="moe_gmm", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
                  replaces="src/repro/kernels/moe_gmm.py:42")
+
+    def routed(tokens, e, cap, groups=1, empty=()):
+        """live int32 [E, G]: top-8 of ``e`` experts for ``tokens`` tokens in each of
+        ``groups`` groups (softmax of random logits), capped at ``cap``; ``empty`` experts
+        are never chosen."""
+        logits = rnd((groups, tokens, e), torch.float32)
+        logits[..., list(empty)] = -1e9
+        top = logits.softmax(-1).topk(8, dim=-1).indices
+        counts = F.one_hot(top, e).sum(dim=(1, 2))                    # [G, E]
+        return counts.clamp(max=cap).T.to(torch.int32).contiguous()
+
+    live_ragged = torch.tensor([[0, 20], [20, 0], [3, 17], [0, 0], [1, 1], [20, 20], [7, 0],
+                                [11, 5]], dtype=torch.int32, device="cuda")
     for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        for e, c, d, f, what in ((64, 8, 2048, 1024, "decode gate/up"),
-                                 (64, 8, 1024, 2048, "decode down"),
-                                 (64, 160, 2048, 1024, "prefill gate/up"),
-                                 (64, 160, 1024, 2048, "prefill down"),
-                                 (8, 40, 100, 72, "ragged")):
-            def make(e=e, c=c, d=d, f=f, dt=dt):
-                xe, we = rnd((e, c, d), dt), rnd((e, d, f), dt) * d**-0.5
-                return (lambda: kgmm.moe_gmm(xe, we), lambda: kgmm.plain(xe, we),
+        for e, c, d, f, what, live in (
+                (64, 8, 2048, 1024, "decode gate/up", None),
+                (64, 8, 1024, 2048, "decode down", None),
+                (64, 8, 2048, 1024, "decode gate/up routed", routed(SERVE_SLOTS, 64, 8)),
+                (64, 160, 2048, 1024, "prefill gate/up", None),
+                (64, 160, 1024, 2048, "prefill down", None),
+                (64, 160, 2048, 1024, "prefill gate/up routed, expert 0 empty",
+                 routed(SERVE_CACHE, 64, 160, empty=(0,))),
+                (8, 40, 100, 72, "ragged", None),
+                (8, 40, 100, 72, "ragged, 2 groups", live_ragged),
+                # the other row tiles of tile_plan: two n8 products, and 300 rows in two tiles
+                (4, 16, 64, 64, "16 rows, 2 groups", live_ragged[:4] % 9),
+                (3, 300, 64, 136, "300 rows", None)):
+            mask = (torch.ones((e, c), dtype=torch.bool, device="cuda") if live is None
+                    else kgmm.live_rows(live, c))
+
+            def make(e=e, c=c, d=d, f=f, dt=dt, live=live, mask=mask):
+                xe, we = rnd((e, c, d), dt) * mask[..., None], rnd((e, d, f), dt) * d**-0.5
+                return (lambda: kgmm.moe_gmm(xe, we, live), lambda: kgmm.plain(xe, we, live),
                         lambda: torch.bmm(xe, we))
 
             size = torch.tensor([], dtype=dt).element_size()
+            # this run's data: the weights of experts with a live row, the live rows of xe;
+            # every output row is written
+            n_rows, n_exp = int(mask.sum()), int(mask.any(dim=1).sum())
+            lv = "" if live is None else f" live_rows={n_rows} live_experts={n_exp}"
             record(e_gmm, dtn == "bfloat16" and what == "decode gate/up", "moe_gmm",
-                   f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]", make,
-                   (e * c * d + e * d * f + e * c * f) * size, 2.0 * e * c * d * f, dtn, dtn)
+                   f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]{lv}", make,
+                   (n_rows * d + n_exp * d * f + e * c * f) * size, 2.0 * n_rows * d * f, dtn, dtn)
     rows.append(e_gmm)
 
     # --- hymba's attention (G = 5, head_dim 64): bf16 flash runs on the tensor cores, one
@@ -523,9 +555,13 @@ def phase_serve(torch, arch: str, timer: Timer):
                           device="cuda")
     plens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     step_tokens = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
-    profile_breakdown(torch, f"{arch} prefill", 1, lambda: api.prefill(params, tokens, plens))
-    profile_breakdown(torch, f"{arch} decode step", 4,
-                      lambda: api.decode_step(params, batcher.cache, step_tokens))
+    seen = profile_breakdown(torch, f"{arch} prefill", 1, lambda: api.prefill(params, tokens, plens))
+    seen |= profile_breakdown(torch, f"{arch} decode step", 4,
+                              lambda: api.decode_step(params, batcher.cache, step_tokens))
+    for group, kernel, _ in KERNEL_GROUPS:
+        if kernel and counts[kernel] and group not in seen:
+            raise AssertionError(f"{arch}: {counts[kernel]} {kernel} launches in the serving run, "
+                                 f"but the profile shows no device time in its group ({group})")
     if cfg.family == "moe":
         moe_layer_times(torch, timer, cfg, params)
     return counts
@@ -543,28 +579,37 @@ def moe_layer_times(torch, timer: Timer, cfg, params):
     for what, tokens in (("prefill", SERVE_CACHE), ("decode step", SERVE_SLOTS)):
         x = torch.randn((tokens, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
         cap = moe.expert_capacity(cfg, tokens)
+        # the live rows this x routes to, as the layer hands them to its moe_gmm calls
+        top = moe._route(x, mp["router"], cfg.experts_per_token)[0]
+        live = (torch.nn.functional.one_hot(top, cfg.num_experts).sum(dim=(0, 1)).clamp(max=cap)
+                [:, None].to(torch.int32).contiguous())
         xe = torch.randn((cfg.num_experts, cap, cfg.d_model), generator=gen,
                          device="cuda").to(torch.bfloat16)
         xd = torch.randn((cfg.num_experts, cap, cfg.d_ff), generator=gen,
                          device="cuda").to(torch.bfloat16)
         layer_ms, hb = timer.ms([lambda: moe.apply_moe(x, mp, cfg, group_size=tokens)])
-        gmm_ms = (2 * timer.ms([lambda: ops.moe_gmm(xe, mp["w_gate"])])[0]
-                  + timer.ms([lambda: ops.moe_gmm(xd, mp["w_down"])])[0])
-        log(f"[profile] {cfg.name} MoE layer, {what} ({tokens} tokens, capacity {cap}): "
-            f"{layer_ms:.4f} ms{' (host-bound)' if hb else ''}, of which its three moe_gmm "
-            f"calls {gmm_ms:.4f} ms (device time, weights L2-cold)")
+        gmm_ms = (2 * timer.ms([lambda: ops.moe_gmm(xe, mp["w_gate"], live)])[0]
+                  + timer.ms([lambda: ops.moe_gmm(xd, mp["w_down"], live)])[0])
+        log(f"[profile] {cfg.name} MoE layer, {what} ({tokens} tokens, capacity {cap}, "
+            f"{int((live > 0).sum())} experts routed to): {layer_ms:.4f} ms"
+            f"{' (host-bound)' if hb else ''}, of which its three moe_gmm calls {gmm_ms:.4f} ms "
+            f"(device time, weights L2-cold)")
 
 
-KERNEL_GROUPS = (("rmsnorm kernel", ("rmsnorm_kernel",)), ("flash kernel", ("flash_kernel",)),
-                 ("decode kernel", ("decode_kernel",)),
-                 ("moe_gmm kernel", ("gmm_bf16_kernel", "gmm_f32_kernel")),
-                 ("ssd kernel", ("ssd_kernel",)),
-                 ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
+# (group, the kernel (ops name) it belongs to, substrings of its device kernels' names);
+# the first group whose substring a kernel's name holds takes it
+KERNEL_GROUPS = (("rmsnorm kernel", "rmsnorm", ("rmsnorm_kernel",)),
+                 ("flash kernel", "flash_attention", ("flash_kernel",)),
+                 ("decode kernel", "decode_attention", ("decode_kernel",)),
+                 ("moe_gmm kernel", "moe_gmm", ("gmm_wgmma_kernel", "gmm_f32_kernel")),
+                 ("ssd kernel", "ssd", ("ssd_chunk_kernel", "ssd_state_kernel", "ssd_out_kernel")),
+                 ("matmul (cuBLAS)", None, ("gemm", "nvjet", "cutlass", "xmma")))
 
 
 def profile_breakdown(torch, what: str, reps: int, fn):
     """Device time of ``reps`` calls of ``fn`` by kernel group (torch.profiler), and
-    the share of the wall time the device was idle under the profiler."""
+    the share of the wall time the device was idle under the profiler; returns the
+    groups that showed device time. Raises if the profiler saw no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,21 +628,21 @@ def profile_breakdown(torch, what: str, reps: int, fn):
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        name = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
+        name = next((g for g, _, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
         groups[name] = groups.get(name, 0.0) + us / 1e3 / reps
         launches[name] = launches.get(name, 0) + ev.count / reps
         if name == "other":
             others.append((us / 1e3 / reps, ev.count / reps, ev.key))
     busy = sum(groups.values())
     if busy == 0.0:
-        log(f"[profile] {what}: the profiler recorded no device kernels")
-        return
+        raise AssertionError(f"{what}: the profiler recorded no device kernels")
     parts = ", ".join(f"{g} {ms:.3f} ms ({launches[g]:.0f} launches)"
                       for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
     log(f"[profile] {what}: wall {wall_ms:.3f} ms under the profiler, device busy {busy:.3f} ms, "
         f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; {parts}")
     top = "; ".join(f"{ms:.3f} ms ({n:.0f}) {key[:90]}" for ms, n, key in sorted(others)[::-1][:4])
     log(f"[profile] {what}: largest in other: {top}")
+    return {g for g, ms in groups.items() if ms > 0.0}
 
 
 def cast_params(params, template, device, dtype):

@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -66,6 +68,8 @@ constexpr float kNegInf = -1e30f;
 // 1. bf16 on the tensor cores (wgmma), head_dim 64 or 128
 // ---------------------------------------------------------------------------
 namespace wg {
+
+using namespace hopper;  // swz, cp_async16, desc, wgmma fences (hopper.cuh)
 
 constexpr int kThreads = 256;  // two consumer warpgroups
 constexpr int kBM = 128;       // query positions per block, 64 per warpgroup
@@ -78,26 +82,6 @@ struct Layout {
   static constexpr int kTileBytes = kBN * DH * 2;                 // one K or V tile
   static constexpr int kSmemBytes = kQBytes + 4 * kTileBytes + 1024;  // + alignment slack
 };
-
-// Byte offset of 16-byte chunk `c` of row `r` in a tile of `rows` rows: the
-// columns in blocks of 64 (128 bytes), each block rows x 128 bytes, the chunk
-// swizzled by the row (wgmma's 128-byte swizzle, on 1024-byte-aligned tiles).
-__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
-  return static_cast<uint32_t>((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [row0, row0 + ROWS) of a [*, DH] matrix whose rows are `stride` elements
 // apart, into a swizzled tile at `dst`; rows at or past `nrows` are zero-filled.
@@ -113,26 +97,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     const __nv_bfloat16* p = ok ? src + (row0 + r) * stride + c * 8 : src;
     cp_async16(dst + swz(r, c, ROWS), p, ok ? 16 : 0);
   }
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of accumulator registers across the
-// asynchronous wgmma region.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D[64x64] (+)= A[64x16] B[16x64], A and B K-major in shared memory.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` at the
 repository root, compiled by ``nvcc`` for ``sm_90a`` at first use. The hash
-covers the source and the flags, so an edited source builds anew and an
-unchanged one is loaded from the cache. All sources are compiled together,
+covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header builds anew and an unchanged one is loaded from the
+cache. All sources are compiled together,
 one ``nvcc`` process each. The libraries have a plain C interface: every
 entry takes pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` as an int, which the wrappers turn into an exception.
@@ -54,14 +55,16 @@ SIGNATURES = {
         "flash_attention_bf16_wgmma": _FLASH,  # bf16 on the tensor cores, head_dim 64 or 128
     },
     "moe_gmm": {
-        # xe, we, out, e, c, d, f, stream
-        "moe_gmm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-        "moe_gmm_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+        # xe, we, live (int32 [E, G] or null), out, e, rows, groups, d, f, stream
+        "moe_gmm_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+        # ... and the tile plan (rows per wgmma, wgmmas per row tile) before the stream
+        "moe_gmm_bf16": (_P,) * 4 + (_I,) * 7 + (_P,),
     },
     "ssd": {
-        # x, a, b, c, y, h_final, b, s, h, p, n, chunk, stream
-        "ssd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "ssd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, a, b, c, y, h_final, float32 workspaces (chunk states, C·Bᵀ, chunk decays),
+        # b, s, h, p, n, chunk, stream
+        "ssd_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
+        "ssd_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
     },
 }
 
@@ -90,9 +93,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    """The cached library of ``csrc/<name>.cu``: keyed on the source, every shared
+    header (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(verbose: bool = False) -> Dict[str, BuildRecord]:

@@ -39,10 +39,11 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window: int = 0,
                                     scale=scale)
 
 
-def moe_gmm(xe, we):
+def moe_gmm(xe, we, live=None):
+    """``live`` int32 [E, G]: leading rows of each group's block that may be non-zero."""
     if xe.device.type == "cpu":
-        return _gmm.plain(xe, we)
-    return _gmm.moe_gmm(xe, we)
+        return _gmm.plain(xe, we, live)
+    return _gmm.moe_gmm(xe, we, live)
 
 
 def ssd(x, a, b, c, *, chunk: int):

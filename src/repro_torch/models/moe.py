@@ -18,7 +18,10 @@ Where the reference vmaps over routing groups, the port carries the group
 as a leading dim, and the expert FFN takes every group's capacity rows of an
 expert as one block of rows: ``[E, G*C, D]``. Each expert product is one
 ``ops.moe_gmm`` call, so on CUDA it runs the hand-written grouped-matmul
-kernel.
+kernel. Both dispatches fill an expert's block of a group from its first row,
+so they hand the kernel ``live`` [E, G] = min(assignments, C): the rows past
+it are zero, and the kernel neither reads them nor, for an expert that no
+token chose, its weights.
 """
 from __future__ import annotations
 
@@ -73,18 +76,21 @@ def _route(x: torch.Tensor, router: torch.Tensor, k: int):
     return top_i, top_w, aux
 
 
-def _expert_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """xe [E, R, D] -> [E, R, D], per-expert SwiGLU; the three products on ``ops.moe_gmm``."""
-    g = ops.moe_gmm(xe, p["w_gate"])
-    u = ops.moe_gmm(xe, p["w_up"])
-    return ops.moe_gmm(F.silu(g) * u, p["w_down"])
+def _expert_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], live: torch.Tensor) -> torch.Tensor:
+    """xe [E, R, D] -> [E, R, D], per-expert SwiGLU; the three products on ``ops.moe_gmm``.
+    The down product's rows past ``live`` are silu(0) * 0 = 0 as well."""
+    g = ops.moe_gmm(xe, p["w_gate"], live)
+    u = ops.moe_gmm(xe, p["w_up"], live)
+    return ops.moe_gmm(F.silu(g) * u, p["w_down"], live)
 
 
-def _groups_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """xe [G, E, C, D] -> [G, E, C, D]: one expert FFN over all groups' rows."""
+def _groups_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], counts: torch.Tensor) -> torch.Tensor:
+    """xe [G, E, C, D] -> [G, E, C, D]: one expert FFN over all groups' rows; ``counts``
+    [G, E] the assignments routed to each expert of each group (kept or not)."""
     g, e, c, d = xe.shape
     rows = xe.transpose(0, 1).reshape(e, g * c, d).contiguous()
-    return _expert_ffn(rows, p).reshape(e, g, c, d).transpose(0, 1)
+    live = counts.clamp(max=c).transpose(0, 1).to(torch.int32).contiguous()  # [E, G]
+    return _expert_ffn(rows, p, live).reshape(e, g, c, d).transpose(0, 1)
 
 
 def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
@@ -108,7 +114,7 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
     combine = torch.einsum("gtke,gtkc->gtec", onehot_e * w[..., None], onehot_c)
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x)
-    ye = _groups_ffn(xe, p)
+    ye = _groups_ffn(xe, p, counts[..., -1])
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
     return y, aux
 
@@ -137,7 +143,7 @@ def _moe_sort(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap
     kg, ks, kt = gi[keep], (se * cap + rank)[keep], stok[keep]        # kept: group, slot, token
     xe = torch.zeros((g, e * cap, d), dtype=x.dtype, device=x.device)
     xe[kg, ks] = x[kg, kt]
-    ye = _groups_ffn(xe.reshape(g, e, cap, d), p).reshape(g, e * cap, d)
+    ye = _groups_ffn(xe.reshape(g, e, cap, d), p, counts).reshape(g, e * cap, d)
 
     contrib = ye[kg, ks] * sw[keep][:, None].to(ye.dtype)
     y = torch.zeros((g, t, d), dtype=ye.dtype, device=x.device)

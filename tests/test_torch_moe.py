@@ -152,9 +152,9 @@ def test_expert_products_go_through_ops_moe_gmm(monkeypatch):
     calls = []
     real = ops.moe_gmm
 
-    def spy(xe, we):
+    def spy(xe, we, live=None):
         calls.append((tuple(xe.shape), tuple(we.shape)))
-        return real(xe, we)
+        return real(xe, we, live)
 
     monkeypatch.setattr(ops, "moe_gmm", spy)
     cap = moe.expert_capacity(cfg, 8)
