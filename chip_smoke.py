@@ -8,25 +8,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   1. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
   2. kernels: each hand-written kernel against its plain PyTorch version at
-     the main paths' shapes (granite-8b's, olmoe-1b-7b's, mamba2-130m's and
-     hymba-1.5b's), in bf16 and f32, with kernel, plain and library device
+     the main paths' shapes (granite-8b's, olmoe-1b-7b's, mamba2-130m's,
+     hymba-1.5b's, glm4-9b's G = 16, qwen2.5-32b's G = 5 at 40 query heads,
+     deepseek's and internvl2's G = 8 at 64, and whisper-base's non-causal
+     encoder and cross-attention, causal decoder self-attention, partly filled
+     self cache and all-valid cross cache), in bf16 and f32, with kernel, plain and library device
      times (``Timer``) and the card's bound for the same work;
-  3. serving, once per model: granite-8b (dense), olmoe-1b-7b (MoE),
-     mamba2-130m (SSM) and hymba-1.5b (hybrid, cache 2048 so that its
-     sliding layers hold a ring of 1024) at full width and depth in bf16,
-     random weights from a seeded generator, 8 requests through
-     ``ContinuousBatcher`` (4 slots); launch counters, set to 0 just before
-     each run and read just after, must equal the expected counts; then a
-     profile of one prefill and a few decode steps by kernel group (and, for
-     olmoe, the MoE layer's device time);
+  3. serving, once per model: granite-8b, glm4-9b, qwen2.5-32b, deepseek-67b
+     (dense; deepseek cut to 44 of 95 layers), olmoe-1b-7b (MoE), mamba2-130m
+     (SSM), hymba-1.5b (hybrid, cache 2048 so that its sliding layers hold a
+     ring of 1024), internvl2-76b (vlm, cut to 35 of 80 layers, 256 patches a
+     request) and whisper-base (encdec, cache 448, 1500 frames a request) at
+     full width in bf16, random weights from a seeded generator, 8 requests
+     through ``ContinuousBatcher`` (4 slots); launch counters, set to 0 just
+     before each run and read just after, must equal the expected counts;
+     then a profile of one prefill and a few decode steps by kernel group
+     (and, for olmoe, the MoE layer's device time);
   4. the models against the plain CPU reference, each at full width cut to
-     2 layers: a prefill plus 4 decode steps, on the card through the kernels
-     and on the CPU through the plain versions (granite, olmoe and mamba2 on
-     a 128-token prompt, hymba on a 1300-token prompt in a 2048 cache with
-     layer 1 sliding; the logits, for olmoe also the share of tokens routed
-     to another set of experts, for mamba2 and hymba also the final SSM
-     state); and a float32 granite served through the batcher on the card
-     (float32 queries against its bf16 cache) with the CPU batcher's tokens.
+     2 layers (whisper-base whole): a prefill plus 4 decode steps, on the
+     card through the kernels and on the CPU through the plain versions
+     (granite, glm4, qwen2.5 with non-zero QKV biases, olmoe, mamba2,
+     internvl2 with its patches and whisper with its frames on a 128-token
+     prompt, hymba on a 1300-token prompt in a 2048 cache with layer 1
+     sliding; the logits, for olmoe also the share of tokens routed to
+     another set of experts, for mamba2 and hymba also the final SSM state);
+     and a float32 granite (float32 queries against its bf16 cache) and a
+     float32 whisper-base (one request decoding past its 448-slot cache)
+     served through the batcher on the card, with the CPU batcher's tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -51,7 +59,18 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
-SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
+SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "glm4-9b", "qwen2.5-32b",
+               "deepseek-67b", "internvl2-76b", "whisper-base")
+# deepseek-67b (134.9 GB of bf16 weights, the reference's num_params) and internvl2-76b
+# (141.2 GB) do not fit the card's 80 GB at full depth: each is served at the deepest
+# cut whose weights are no larger than those of qwen2.5-32b at full depth (65.5 GB),
+# which the card serves with its cache and activations (``serve_depth``: 44 and 35
+# layers); widths are never cut
+DEPTH_CUT_ARCHS, WEIGHT_BUDGET_ARCH = ("deepseek-67b", "internvl2-76b"), "qwen2.5-32b"
+WHISPER_CACHE = 448   # Whisper's text context
+# phase 4: every model but deepseek-67b (the same dense code as glm4 and qwen2.5)
+REFERENCE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "glm4-9b",
+                   "qwen2.5-32b", "internvl2-76b", "whisper-base")
 # hymba serves a 2048 cache, so its sliding layers (window 1024) hold a ring; its
 # prompts straddle the window: the prefill's window mask bites over 1024, the
 # trailing-window rule under it, and the decode ring wraps
@@ -59,7 +78,7 @@ HYMBA_CACHE = 2048
 HYMBA_PROMPT_LENS = (96, 700, 1020, 1100, 1500, 2000, 300, 1800)
 # rmsnorm launches per layer: the block norms, plus the gated norm of an SSM mixer,
 # plus the hybrid's two branch output norms
-NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 5}
+NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 5, "vlm": 2}
 # phase 4: the share of (token, layer) top-k expert sets that a bf16 run on the
 # card may route differently from the float32 CPU run (bf16 rounding moves
 # near-ties between the k-th and the next expert); float32 must route alike
@@ -438,6 +457,69 @@ def phase_kernels(torch, timer: Timer):
                    2 * n_valid * 5 * 64 * size + 4 * 25 * 64 * 2 * size + (4 * s_len + 4) * 4,
                    4.0 * 25 * 64 * n_valid, dtn, dtn)
 
+    # --- the attention modes of glm4-9b (G = 16), qwen2.5-32b (40 query heads, G = 5),
+    # deepseek-67b and internvl2-76b (64 query heads, G = 8) and whisper-base (G = 1,
+    # head_dim 64): flash non-causal with Sq = Sk (the encoder, 1500 frames) and Sq != Sk
+    # (cross-attention, 448 text positions over 1500 frames), causal at each G and over
+    # whisper's 448 text positions; decode at G = 16 (query rows in chunks of
+    # ROWS_PER_BLOCK), G = 5 and G = 8, and over whisper's partly filled self cache (448
+    # slots) and its cross cache (1500 slots, all valid: slot_pos 0, cur_pos 0) ---
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        size = torch.tensor([], dtype=dt).element_size()
+        for what, sq, sk, hq, hkv, dh, causal in (("whisper encoder", 1500, 1500, 8, 8, 64, False),
+                                                  ("whisper cross", 448, 1500, 8, 8, 64, False),
+                                                  ("whisper decoder self", 448, 448, 8, 8, 64, True),
+                                                  ("glm4 G=16", 1024, 1024, 32, 2, 128, True),
+                                                  ("qwen2.5 G=5", 1024, 1024, 40, 8, 128, True),
+                                                  ("deepseek/internvl2 G=8", 1024, 1024, 64, 8, 128,
+                                                   True)):
+            def make(sq=sq, sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, dt=dt):
+                q, k, v = rnd((1, sq, hq, dh), dt), rnd((1, sk, hkv, dh), dt), rnd((1, sk, hkv, dh), dt)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+                    enable_gqa=True)
+                return (lambda: kfl.flash_attention(q, k, v, causal=causal),
+                        lambda: kfl.plain(q, k, v, causal=causal), lib if has_gqa else None)
+
+            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            record(e_fl, False, "flash_attention",
+                   f"{what} q[1,{sq},{hq},{dh}] kv[1,{sk},{hkv},{dh}] "
+                   f"{'causal' if causal else 'non-causal'}", make,
+                   (2 * sq * hq + 2 * sk * hkv) * dh * size, 4.0 * hq * dh * pairs, dtn, dtn)
+        b = 4   # the 1024-slot caches filled to `fill` as above; the cross cache all valid
+        part_slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
+        part_cur = (fill - 1).to(torch.int32)
+        cross_slot = torch.zeros((b, 1500), dtype=torch.int32, device="cuda")
+        cross_cur = torch.zeros((b,), dtype=torch.int32, device="cuda")
+        # whisper's self cache: a row full (a request decoding past its 448 slots), two
+        # partly filled, and one with the shortest prompt
+        self_fill = torch.tensor([WHISPER_CACHE, 300, 70, 5], device="cuda", dtype=torch.int32)
+        ar_self = torch.arange(WHISPER_CACHE, device="cuda", dtype=torch.int32)[None]
+        self_slot = torch.where(ar_self < self_fill[:, None], ar_self, -1).to(torch.int32).contiguous()
+        self_cur = (self_fill - 1).to(torch.int32)
+        for what, s_len, hq, hkv, dh, slot_, cur_ in (
+                ("glm4 G=16", 1024, 32, 2, 128, part_slot, part_cur),
+                ("qwen2.5 G=5", 1024, 40, 8, 128, part_slot, part_cur),
+                ("deepseek/internvl2 G=8", 1024, 64, 8, 128, part_slot, part_cur),
+                ("whisper self", WHISPER_CACHE, 8, 8, 64, self_slot, self_cur),
+                ("whisper cross", 1500, 8, 8, 64, cross_slot, cross_cur)):
+            valid = (slot_ >= 0) & (slot_ <= cur_[:, None])
+
+            def make(s_len=s_len, hq=hq, hkv=hkv, dh=dh, slot_=slot_, cur_=cur_, valid=valid, dt=dt):
+                q, kc, vc = rnd((b, hq, dh), dt), rnd((b, s_len, hkv, dh), dt), rnd((b, s_len, hkv, dh), dt)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=valid[:, None, None, :], enable_gqa=True)
+                return (lambda: kdec.decode_attention(q, kc, vc, slot_, cur_),
+                        lambda: kdec.plain(q, kc, vc, slot_, cur_), lib if has_gqa else None)
+
+            n_valid = int(valid.sum())
+            record(e_dec, False, "decode_attention",
+                   f"{what} q[{b},{hq},{dh}] cache[{b},{s_len},{hkv},{dh}] valid_slots={n_valid} "
+                   f"splits={kdec.split_plan(b, hkv, s_len, hq // hkv, size, dh)}", make,
+                   2 * n_valid * hkv * dh * size + 2 * b * hq * dh * size + (b * s_len + b) * 4,
+                   4.0 * hq * dh * n_valid, dtn, dtn)
+
     # --- ssd: the prefill scans of mamba2 (x [1,1024,24,64], N = 128) and hymba
     # (x [1,2048,50,64], N = 16), chunk 128, and tests/test_kernels.py:101-104's shapes ---
     e_ssd = dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
@@ -474,8 +556,45 @@ def phase_kernels(torch, timer: Timer):
     return rows
 
 
+def expected_launches(cfg, prefills: int, steps: int):
+    """Launches per kernel of ``prefills`` prefills and ``steps`` decode steps of ``cfg``."""
+    L = cfg.num_layers
+    if cfg.family == "encdec":   # LayerNorms in plain torch; self- and cross-attention per layer
+        return {"rmsnorm": 0, "flash_attention": (cfg.encoder_layers + 2 * L) * prefills,
+                "decode_attention": 2 * L * steps, "moe_gmm": 0, "ssd": 0}
+    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
+    return {"rmsnorm": (NORMS_PER_LAYER[cfg.family] * L + 1) * (prefills + steps),
+            "flash_attention": L * prefills if attn else 0,
+            "decode_attention": L * steps if attn else 0,
+            "moe_gmm": 3 * L * (prefills + steps) if cfg.family == "moe" else 0,
+            "ssd": L * prefills if ssm else 0}
+
+
+def request_extras(torch, cfg, n: int, seed: int, device="cuda", dtype=None):
+    """Per request, the prefill keywords of a vlm (``patches`` [1, P, D]) or an encdec
+    model (``frames`` [1, F, D]) from a seeded generator on the card, in the model's
+    dtype unless ``dtype`` says otherwise; {} for the other families."""
+    key, length = {"vlm": ("patches", cfg.num_patches),
+                   "encdec": ("frames", cfg.encoder_frames)}.get(cfg.family, (None, 0))
+    if key is None:
+        return [{} for _ in range(n)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = dtype or {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    return [{key: torch.randn((1, length, cfg.d_model), generator=gen, device="cuda")
+             .to(device=device, dtype=dt)} for _ in range(n)]
+
+
+def serve_depth(cfg, budget_params: int) -> int:
+    """The most layers of ``cfg`` whose parameters number no more than ``budget_params``."""
+    depth = cfg.num_layers
+    while depth > 1 and cfg.replace(num_layers=depth).num_params() > budget_params:
+        depth -= 1
+    return depth
+
+
 def phase_serve(torch, arch: str, timer: Timer):
-    """Serve ``arch`` at full width and depth; returns its run's launch counts."""
+    """Serve ``arch`` at full width (``DEPTH_CUT_ARCHS`` cut in depth by ``serve_depth``);
+    returns its run's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build
@@ -483,11 +602,18 @@ def phase_serve(torch, arch: str, timer: Timer):
 
     _no_tf32(torch)
     cfg = get_config(arch)
+    if arch in DEPTH_CUT_ARCHS:
+        depth = serve_depth(cfg, get_config(WEIGHT_BUDGET_ARCH).num_params())
+        log(f"[serve] {arch}: depth cut from {cfg.num_layers} to {depth} layers "
+            f"({cfg.num_params() * 2 / 1e9:.1f} GB of bf16 weights at full depth; "
+            f"{WEIGHT_BUDGET_ARCH}'s at full depth, the bound of the cut, "
+            f"{get_config(WEIGHT_BUDGET_ARCH).num_params() * 2 / 1e9:.1f} GB)")
+        cfg = cfg.replace(num_layers=depth)
     api = build(cfg, device="cuda")
     t0 = time.perf_counter()
     params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {api.param_count() / 1e9:.3f} B params, "
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, {api.param_count() / 1e9:.3f} B params, "
         f"{api.param_bytes() / 1e9:.2f} GB bf16, init {time.perf_counter() - t0:.2f} s")
 
     decode_s = [0.0]
@@ -500,20 +626,24 @@ def phase_serve(torch, arch: str, timer: Timer):
         return out
 
     rng = np.random.default_rng(0)
-    cache_len = HYMBA_CACHE if cfg.family == "hybrid" else SERVE_CACHE
+    cache_len = {"hybrid": HYMBA_CACHE, "encdec": WHISPER_CACHE}.get(cfg.family, SERVE_CACHE)
     lens = (HYMBA_PROMPT_LENS if cfg.family == "hybrid"
+            else rng.integers(4, 65, size=SERVE_REQUESTS) if cfg.family == "encdec"
             else rng.integers(64, 513, size=SERVE_REQUESTS))
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    extras = request_extras(torch, cfg, SERVE_REQUESTS, seed=1)
+    extras_fn = lambda rid: extras[max(rid, 0)]
 
     # warm-up (cuBLAS handles, allocator): one short request on its own batcher
-    warm = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=cache_len)
+    warm = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=cache_len,
+                             extras_fn=extras_fn)
     warm.submit(Request(-1, prompts[0][:16], max_new_tokens=2))
     warm.run_to_completion()
     del warm
     torch.cuda.synchronize()
 
     batcher = ContinuousBatcher(dataclasses.replace(api, decode_step=timed_decode), params,
-                                num_slots=SERVE_SLOTS, cache_len=cache_len)
+                                num_slots=SERVE_SLOTS, cache_len=cache_len, extras_fn=extras_fn)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_start = time.perf_counter()
@@ -533,16 +663,10 @@ def phase_serve(torch, arch: str, timer: Timer):
             raise AssertionError(f"{arch} request {r.rid}: bad output {r.generated}")
         log(f"[serve] {arch} request {r.rid}: prompt {len(r.prompt)} tokens, TTFT "
             f"{1e3 * (r.first_token_at - t_start):.1f} ms, first tokens {r.generated[:4]}")
-    prefills, steps, L = len(reqs), batcher.steps, cfg.num_layers
-    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
-    expected = {"rmsnorm": (NORMS_PER_LAYER[cfg.family] * L + 1) * (prefills + steps),
-                "flash_attention": L * prefills if attn else 0,
-                "decode_attention": L * steps if attn else 0,
-                "moe_gmm": 3 * L * (prefills + steps) if cfg.family == "moe" else 0,
-                "ssd": L * prefills if ssm else 0}
-    log(f"[serve] {arch}: cache {cache_len}, {prefills} prefills, {steps} decode steps, "
+    expected = expected_launches(cfg, len(reqs), batcher.steps)
+    log(f"[serve] {arch}: cache {cache_len}, {len(reqs)} prefills, {batcher.steps} decode steps, "
         f"{decode_tokens} decode tokens in {decode_s[0]:.3f} s of decode steps: "
-        f"{decode_tokens / decode_s[0]:.1f} tokens/s, {1e3 * decode_s[0] / steps:.2f} ms/step; "
+        f"{decode_tokens / decode_s[0]:.1f} tokens/s, {1e3 * decode_s[0] / batcher.steps:.2f} ms/step; "
         f"wall {wall:.3f} s; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, n in expected.items():
         log(f"[serve] {arch} launches {name}: {counts[name]} (expected {n})")
@@ -551,11 +675,12 @@ def phase_serve(torch, arch: str, timer: Timer):
 
     # where a prefill's and a decode step's device time goes (after the counts were read)
     prompt = prompts[0]
-    tokens = torch.tensor([prompt + [0] * (cache_len - len(prompt))], dtype=torch.int32,
-                          device="cuda")
+    room = cache_len - cfg.num_patches
+    tokens = torch.tensor([prompt + [0] * (room - len(prompt))], dtype=torch.int32, device="cuda")
     plens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     step_tokens = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
-    seen = profile_breakdown(torch, f"{arch} prefill", 1, lambda: api.prefill(params, tokens, plens))
+    seen = profile_breakdown(torch, f"{arch} prefill", 1,
+                             lambda: api.prefill(params, tokens, plens, **extras[0]))
     seen |= profile_breakdown(torch, f"{arch} decode step", 4,
                               lambda: api.decode_step(params, batcher.cache, step_tokens))
     for group, kernel, _ in KERNEL_GROUPS:
@@ -606,21 +731,39 @@ KERNEL_GROUPS = (("rmsnorm kernel", "rmsnorm", ("rmsnorm_kernel",)),
                  ("matmul (cuBLAS)", None, ("gemm", "nvjet", "cutlass", "xmma")))
 
 
+def card_clocks() -> str:
+    """The card's SM clock, its maximum and the power drawn, as nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() \
+        else "not read"
+
+
+# a profile runs at least this long, so that the card's clocks have left idle
+MIN_PROFILE_MS = 200.0
+
+
 def profile_breakdown(torch, what: str, reps: int, fn):
-    """Device time of ``reps`` calls of ``fn`` by kernel group (torch.profiler), and
-    the share of the wall time the device was idle under the profiler; returns the
-    groups that showed device time. Raises if the profiler saw no device kernel."""
+    """Device time per call of ``fn`` by kernel group (torch.profiler), over ``reps``
+    calls or as many more as take ``MIN_PROFILE_MS``, the share of the wall time the
+    device was idle under the profiler, and the SM clock and power just before and
+    just after; returns the groups that showed device time. Raises if the profiler
+    saw no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    reps = max(reps, math.ceil(MIN_PROFILE_MS / (1e3 * (time.perf_counter() - t0))))
+    before = card_clocks()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    after = card_clocks()
     groups, launches, others = {}, {}, []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -638,8 +781,9 @@ def profile_breakdown(torch, what: str, reps: int, fn):
         raise AssertionError(f"{what}: the profiler recorded no device kernels")
     parts = ", ".join(f"{g} {ms:.3f} ms ({launches[g]:.0f} launches)"
                       for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-    log(f"[profile] {what}: wall {wall_ms:.3f} ms under the profiler, device busy {busy:.3f} ms, "
-        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; {parts}")
+    log(f"[profile] {what}: {reps} calls; per call wall {wall_ms:.3f} ms under the profiler, "
+        f"device busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}; {parts}")
+    log(f"[profile] {what}: SM clock, max SM clock, power: before [{before}], after [{after}]")
     top = "; ".join(f"{ms:.3f} ms ({n:.0f}) {key[:90]}" for ms, n, key in sorted(others)[::-1][:4])
     log(f"[profile] {what}: largest in other: {top}")
     return {g for g, ms in groups.items() if ms > 0.0}
@@ -648,25 +792,31 @@ def profile_breakdown(torch, what: str, reps: int, fn):
 def cast_params(params, template, device, dtype):
     """``params`` on ``device`` in ``dtype``, except the leaves whose spec fixes a dtype:
     the MoE router stays float32, as in the reference's bf16 model."""
-    from repro_torch.models.common import torch_dtype
+    from repro_torch.models.common import torch_dtype, tree_items, tree_map_with_path
 
-    return {k: cast_params(v, template[k], device, dtype) if isinstance(v, dict)
-            else v.to(device=device, dtype=torch_dtype(template[k].dtype) if template[k].dtype
-                      else dtype)
-            for k, v in params.items()}
+    specs = dict(tree_items(template))
+    return tree_map_with_path(
+        lambda path, t: t.to(device=device, dtype=torch_dtype(specs[path].dtype)
+                             if specs[path].dtype else dtype), params)
 
 
 def phase_reference(torch):
-    for arch in SERVE_ARCHS:
+    for arch in REFERENCE_ARCHS:
         reference_model(torch, arch)
-    reference_batcher(torch)
+    reference_batcher(torch, "granite-8b", cache_len=128, prompt_lens=None, max_new=8)
+    # request 0 fills 440 of the 448 slots and decodes 16 tokens: past the cache, where the
+    # self-attention overwrites slot min(pos, S-1) and the position row is clamped
+    reference_batcher(torch, "whisper-base", cache_len=WHISPER_CACHE,
+                      prompt_lens=(440, 12, 64, 5, 200, 33), max_new=16)
 
 
 def reference_model(torch, arch: str):
-    """``arch`` at full width cut to 2 layers, on the card (float32 and bf16, through
-    the kernels) against the CPU's float32 plain run: the logits of a prefill and 4
-    decode steps; for MoE, also the share of (token, layer) top-k expert sets that
-    the card routed differently; for SSM and hybrid, also the final SSM state.
+    """``arch`` at full width cut to 2 layers (an encdec model whole), on the card
+    (float32 and bf16, through the kernels) against the CPU's float32 plain run: the
+    logits of a prefill and 4 decode steps; for MoE, also the share of (token, layer)
+    top-k expert sets that the card routed differently; for SSM and hybrid, also the
+    final SSM state. A QKV bias is drawn non-zero (the template's zeros would hide
+    it); a vlm gets its patches and an encdec model its frames, from a seeded generator.
 
     hymba keeps layer 0 global and lets layer 1 slide, and runs a 1300-token prompt
     in a 2048 cache: the window (1024) bites in the prefill and in the decode ring."""
@@ -675,7 +825,9 @@ def reference_model(torch, arch: str):
     from repro_torch.models.model import build
 
     _no_tf32(torch)
-    cfg = get_config(arch).replace(num_layers=2)
+    cfg = get_config(arch)
+    if cfg.family != "encdec":
+        cfg = cfg.replace(num_layers=2)
     plen, n_dec, seq = 128, 4, 136   # 8 pad tokens after the prompt
     if cfg.family == "hybrid":
         cfg = cfg.replace(global_attn_layers=(0,))
@@ -685,6 +837,11 @@ def reference_model(torch, arch: str):
     plens = torch.tensor([plen], dtype=torch.int32)
     gpu = build(cfg, device="cuda")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    if cfg.qkv_bias:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for name in ("bq", "bk", "bv"):
+            params["blocks"]["attn"][name].normal_(0.0, 0.5, generator=gen)
+    extras = request_extras(torch, cfg, 1, seed=2, device="cpu", dtype=torch.float32)[0]
     cpu = build(cfg, device="cpu")
     params_cpu = cast_params(params, cpu.param_template, "cpu", torch.float32)
 
@@ -701,7 +858,8 @@ def reference_model(torch, arch: str):
         """(logits of the prefill and each decode step, the final SSM state h or None)."""
         routes.append([])
         p = cast_params(p, api.param_template, device, dtype)
-        logits, cache = api.prefill(p, prompt.to(device), plens.to(device))
+        logits, cache = api.prefill(p, prompt.to(device), plens.to(device),
+                                    **{k: v.to(device=device, dtype=dtype) for k, v in extras.items()})
         outs = [logits.float().cpu()]
         for tok in forced:
             logits, cache = api.decode_step(p, cache, torch.tensor([tok], dtype=torch.int32, device=device))
@@ -737,52 +895,62 @@ def reference_model(torch, arch: str):
                     ok = ok and bool(((got_h - want_h).abs() <= h_tol + h_tol * want_h.abs()).all())
                     note += (f", final SSM state {tuple(want_h.shape)} max_abs_err {h_err:.3e} "
                              f"(rtol=atol={h_tol}; |h| max {want_h.abs().max().item():.3e})")
-                log(f"[reference] {arch} 2-layer full width, prompt {plen} in {seq}, card {dtn} via "
+                log(f"[reference] {arch} {cfg.num_layers}-layer full width, prompt {plen} in {seq}"
+                    f"{''.join(f', {k} {list(v.shape)}' for k, v in extras.items())}, card {dtn} via "
                     f"kernels vs CPU float32 plain: max_abs_err {err:.3e} (rtol={rtol}, atol={atol}), "
                     f"top-1 agreement {top1:.2f} over {got.shape[0]} positions (need >= 0.6){note} "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError(f"{arch}: 2-layer model on the card disagrees with the CPU ({dtn})")
+                    raise AssertionError(f"{arch}: the model on the card disagrees with the CPU ({dtn})")
     finally:
         moe._route = real_route
 
 
-def reference_batcher(torch):
-    """A float32 granite-8b (full width, 2 layers) served through the batcher on the card:
-    its decode steps send float32 queries against the bf16 cache. The token streams
-    must equal the CPU batcher's."""
+def reference_batcher(torch, arch: str, cache_len: int, prompt_lens, max_new: int):
+    """A float32 ``arch`` (full width, 2 layers; an encdec model whole) served through the
+    batcher on the card, 6 requests of ``prompt_lens`` tokens (None: 8 to 96, drawn);
+    the token streams must equal the CPU batcher's. A decoder-only model's decode
+    steps send float32 queries against its bf16 cache; an encdec cache is float32."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.common import tree_map
     from repro_torch.models.model import build
     from repro_torch.serving.batching import ContinuousBatcher, Request
 
-    cfg = get_config("granite-8b").replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32")
+    if cfg.family != "encdec":
+        cfg = cfg.replace(num_layers=2)
     gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
-    params_cpu = tree_map(lambda t: t.cpu(), params)
+    params_cpu = cast_params(params, cpu.param_template, "cpu", torch.float32)
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.integers(8, 97, size=6)]
+    lens = rng.integers(8, 97, size=6) if prompt_lens is None else prompt_lens
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    extras = request_extras(torch, cfg, len(prompts), seed=3, dtype=torch.float32)
 
     def serve(api, p):
-        batcher = ContinuousBatcher(api, p, num_slots=SERVE_SLOTS, cache_len=128)
+        ex = [{k: v.to(api.device) for k, v in e.items()} for e in extras]
+        batcher = ContinuousBatcher(api, p, num_slots=SERVE_SLOTS, cache_len=cache_len,
+                                    extras_fn=lambda rid: ex[rid])
         for i, pr in enumerate(prompts):
-            batcher.submit(Request(i, pr, max_new_tokens=8))
+            batcher.submit(Request(i, pr, max_new_tokens=max_new))
         return batcher.run_to_completion(), batcher.steps
 
     ops.reset_launch_counts()
     got, steps = serve(gpu, params)
     counts = ops.launch_counts()
     want, _ = serve(cpu, params_cpu)
-    ok = got == want and counts["decode_attention"] == cfg.num_layers * steps > 0
+    expected = expected_launches(cfg, len(prompts), steps)["decode_attention"]
+    ok = got == want and counts["decode_attention"] == expected > 0
     same = sum(g == w for r in want for g, w in zip(got[r], want[r]))
-    log(f"[reference] granite-8b 2-layer float32 through the batcher (bf16 cache): card vs CPU "
-        f"token streams equal: {got == want} ({same} of {sum(map(len, want.values()))} tokens "
-        f"equal over {len(want)} requests, {steps} decode steps, "
-        f"{counts['decode_attention']} decode kernel launches) {'ok' if ok else 'FAIL'}")
+    past = sum(len(pr) + max_new - 1 > cache_len for pr in prompts)
+    log(f"[reference] {arch} {cfg.num_layers}-layer float32 through the batcher "
+        f"({'float32' if cfg.family == 'encdec' else 'bf16'} cache of {cache_len}, {past} "
+        f"request(s) decoding past it): card vs CPU token streams equal: {got == want} ({same} of "
+        f"{sum(map(len, want.values()))} tokens equal over {len(want)} requests, {steps} decode "
+        f"steps, {counts['decode_attention']} decode kernel launches, expected {expected}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("float32 batcher on the card disagrees with the CPU batcher")
+        raise AssertionError(f"{arch}: float32 batcher on the card disagrees with the CPU batcher")
 
 
 def main() -> int:

@@ -1,14 +1,15 @@
 """Carry weights (and any other tree of arrays) from numpy into the port.
 
-The JAX package's parameter tree, given as nested dicts of numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``), becomes the port's tree:
-the same nested dicts, so the same ``/``-joined leaf paths
-(``blocks/attn/wq``), with layer-stacked leaves kept ``[L, ...]`` and
-matrices kept ``[in, out]``. Nothing here imports JAX.
+The JAX package's parameter tree, given as nested dicts and lists of numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``), becomes the port's
+tree: the same nesting, so the same ``/``-joined leaf paths
+(``blocks/attn/wq``, ``dec_blocks/0/self_attn/wq``), with layer-stacked
+leaves kept ``[L, ...]`` and matrices kept ``[in, out]``. Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
@@ -31,8 +32,8 @@ def to_tensor(arr: Any, device="cuda") -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
-def from_numpy_tree(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Nested dicts of numpy arrays -> the same nested dicts of tensors."""
+def from_numpy_tree(tree, device="cuda"):
+    """Nested dicts and lists of numpy arrays -> the same nesting of tensors."""
     return tree_map(lambda a: to_tensor(a, device), tree)
 
 

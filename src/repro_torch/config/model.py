@@ -1,12 +1,13 @@
-"""Model configuration for the ported decoder families.
+"""Model configuration for every architecture family.
 
-A copy of the fields of ``repro.config.model.ModelConfig`` that the ported
-families read:
+A copy of ``repro.config.model.ModelConfig`` for every family:
 
   dense  -- decoder-only transformer (llama-style: RMSNorm, SwiGLU, RoPE, GQA)
   moe    -- the dense skeleton with a top-k routed MoE FFN in place of SwiGLU
   ssm    -- attention-free Mamba2 (SSD) stack
   hybrid -- Hymba-style parallel attention + SSM heads per block
+  encdec -- Whisper-style encoder-decoder (the conv frontend is a stub: frames in)
+  vlm    -- InternVL-style: patch embeddings projected and prepended to a dense LM
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 @dataclass(frozen=True)
@@ -55,6 +56,13 @@ class ModelConfig:
     # --- hybrid (attention + SSM in parallel) ---
     sliding_window: int = 0   # 0 -> full attention
     global_attn_layers: tuple = ()  # layer indices using full attention
+
+    # --- encoder-decoder ---
+    encoder_layers: int = 0
+    encoder_frames: int = 1500  # stub frontend output length (audio frames)
+
+    # --- VLM ---
+    num_patches: int = 0      # stub frontend output length (image patches)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -109,7 +117,16 @@ class ModelConfig:
         """Total parameter count N."""
         embed = self.vocab_size * self.d_model
         head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
-        return self.num_layers * self.layer_params() + embed + head + self.d_model
+        if self.family == "encdec":
+            ffn, norm = 3 * self.d_model * self.d_ff, self.d_model
+            enc_block = self._attn_params() + ffn + 2 * norm
+            dec_block = 2 * self._attn_params() + ffn + 3 * norm   # self- and cross-attention
+            return (self.encoder_layers * enc_block + self.num_layers * dec_block + embed + head
+                    + 2 * norm)
+        total = self.num_layers * self.layer_params() + embed + head + self.d_model
+        if self.family == "vlm":
+            total += self.d_model * self.d_model   # the stub patch projection
+        return total
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -130,3 +147,5 @@ def validate(cfg: ModelConfig) -> None:
             raise ValueError("ssm and hybrid models need ssm_state > 0")
         if cfg.d_inner % cfg.ssm_head_dim:
             raise ValueError("d_inner must be a multiple of ssm_head_dim")
+    if cfg.family == "encdec" and cfg.encoder_layers <= 0:
+        raise ValueError("encdec models need encoder_layers > 0")

@@ -1,18 +1,21 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
 Each module exposes ``full()`` (the published config) and ``smoke()`` (a
-reduced same-family config for CPU tests). The dense, MoE, SSM and hybrid
-families are ported.
+reduced same-family config for CPU tests). All ten of the reference's
+architectures are registered, in its order.
 """
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.config import ModelConfig, validate
-from repro_torch.configs import granite_8b, hymba_1p5b, mamba2_130m, olmoe_1b_7b, qwen3_moe_235b
+from repro_torch.configs import (deepseek_67b, glm4_9b, granite_8b, hymba_1p5b, internvl2_76b,
+                                 mamba2_130m, olmoe_1b_7b, qwen3_moe_235b, qwen25_32b,
+                                 whisper_base)
 
-_MODULES = {m.ARCH_ID: m for m in (granite_8b, olmoe_1b_7b, qwen3_moe_235b, mamba2_130m,
-                                   hymba_1p5b)}
+_MODULES = {m.ARCH_ID: m for m in (deepseek_67b, glm4_9b, qwen25_32b, granite_8b, whisper_base,
+                                   hymba_1p5b, internvl2_76b, mamba2_130m, olmoe_1b_7b,
+                                   qwen3_moe_235b)}
 
 ARCH_IDS: List[str] = list(_MODULES)
 

@@ -1,16 +1,17 @@
 """Parameter templates, initialisation and device handling.
 
-Models declare their parameters as nested dicts of ``ParamSpec`` (shape,
-logical axes, initializer, dtype), as the JAX package does; ``init_params``
-materialises the same tree as nested dicts of tensors. The tree's leaves are
-addressed by ``/``-joined paths (``blocks/attn/wq``), the same paths the JAX
+Models declare their parameters as nested dicts (and lists, for the
+encoder-decoder's blocks) of ``ParamSpec`` (shape, logical axes, initializer,
+dtype), as the JAX package does; ``init_params`` materialises the same tree
+of tensors. The tree's leaves are addressed by ``/``-joined paths
+(``blocks/attn/wq``, ``dec_blocks/0/self_attn/wq``), the same paths the JAX
 package's trees have.
 """
 from __future__ import annotations
 
 import math
 import zlib
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,18 +45,34 @@ def torch_dtype(name: str) -> torch.dtype:
             "int32": torch.int32}[name]
 
 
-def tree_items(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(``/``-joined path, leaf) pairs of a nested dict, in key order."""
-    for k, v in tree.items():
+def _children(tree):
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(``/``-joined path, leaf) pairs of nested dicts and lists, in order; a list
+    item's key is its index (``dec_blocks/0/self_attn/wq``)."""
+    for k, v in _children(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             yield from tree_items(v, path)
         else:
             yield path, v
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """The same nested dicts and lists with ``fn(path, leaf)`` at each leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
@@ -109,19 +126,22 @@ def init_params(template, generator: torch.Generator, device="cuda",
             part.copy_(tmp)
         return arr
 
-    paths = dict(tree_items(template))
-    return _unflatten({p: make(p, s) for p, s in paths.items()})
+    return tree_map_with_path(make, template)
 
 
-def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
-    for path, leaf in flat.items():
-        *parents, last = path.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    return tree
+def empty_tree(spec, device="cuda", dtype: str = "bfloat16"):
+    """A cache from its ParamSpec tree: zeros, int32 leaves of rank >= 3 (``slot_pos``)
+    -1 (empty), other int32 leaves (``pos``) 0; leaves whose spec names no dtype
+    take ``dtype``."""
+    dev = resolve_device(device)
+
+    def mk(s: ParamSpec) -> torch.Tensor:
+        dt = torch_dtype(s.dtype or dtype)
+        if s.dtype == "int32":
+            return torch.full(s.shape, -1 if len(s.shape) >= 3 else 0, dtype=dt, device=dev)
+        return torch.zeros(s.shape, dtype=dt, device=dev)
+
+    return tree_map(mk, spec)
 
 
 def param_count(template) -> int:

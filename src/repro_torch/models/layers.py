@@ -1,4 +1,4 @@
-"""Primitive layers: norm, SwiGLU MLP, rotary embeddings, token embedding.
+"""Primitive layers: norms, MLPs, rotary and sinusoidal positions, token embedding.
 
 Numerically sensitive statistics (norms, RoPE angles) run in float32
 whatever the parameter/activation dtype. Matrices keep the JAX package's
@@ -17,10 +17,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with a bias; mean and variance in float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: out( gelu_tanh(x @ w_in + b_in) ) + b_out."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -41,6 +56,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """Sinusoidal position embeddings [length, d_model], float32: sin then cos."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2.0 * dim / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

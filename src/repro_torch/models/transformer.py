@@ -1,17 +1,18 @@
-"""Decoder-only LM for the dense, moe, ssm and hybrid families: parameters,
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families: parameters,
 prefill, decode step, cache.
 
-Counterpart of ``repro.models.transformer`` for those four families. A dense
-or MoE layer is rms_norm -> QKV -> RoPE -> attention -> wo -> residual ->
+Counterpart of ``repro.models.transformer``. A dense or MoE layer is
+rms_norm -> QKV -> RoPE -> attention -> wo -> residual ->
 rms_norm -> FFN -> residual, the FFN SwiGLU (dense) or the routed experts of
 ``models.moe`` (moe). An ssm layer is rms_norm -> Mamba2 mixer
 (``models.ssm``) -> residual. A hybrid (Hymba) layer runs attention and the
 Mamba2 mixer in parallel on one normed input, adds the mean of their
 normed outputs, then the SwiGLU FFN; its attention is sliding-window except
-on ``global_attn_layers``. Then the final norm and the (tied) LM head. The
-norms, the two attentions, the expert products and the SSD scan go through
-``kernels.ops``, so on CUDA they run the hand-written kernels; the other
-projections are ``torch.matmul``.
+on ``global_attn_layers``. A vlm is a dense LM whose sequence starts with the
+request's P patch embeddings, projected by ``patch_proj``. Then the final
+norm and the (tied) LM head. The norms, the two attentions, the expert
+products and the SSD scan go through ``kernels.ops``, so on CUDA they run
+the hand-written kernels; the other projections are ``torch.matmul``.
 
 Layer-stacked parameters are ``[L, ...]`` tensors, sliced per layer (the
 JAX code scans over them). The decode step updates the attention caches
@@ -27,7 +28,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
 from repro_torch.models.attention import cache_write_decode, promote
-from repro_torch.models.common import ParamSpec, resolve_device, torch_dtype, tree_map
+from repro_torch.models.common import ParamSpec, empty_tree, tree_map
 from repro_torch.models.layers import apply_rope, embed_tokens, swiglu
 
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
@@ -91,6 +92,8 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.family == "vlm":
+        t["patch_proj"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", None))
     return t
 
 
@@ -213,12 +216,18 @@ def _layer_window(cfg: ModelConfig, idx: int) -> int:
 # Full-model forward (hidden states)
 # ---------------------------------------------------------------------------
 def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = False,
-                   prompt_lens=None
+                   prompt_lens=None, patches=None
                    ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
-    """tokens [B,S] -> (final-normed h [B,S,D], per-layer cache pieces (see
+    """tokens [B,S_text] -> (final-normed h [B,S,D], per-layer cache pieces (see
     ``block_full``) or None, aux): aux is the MoE aux loss averaged over layers
-    (0 for the other families). ``prompt_lens`` [B] reaches every SSM mixer."""
+    (0 for the other families). ``prompt_lens`` [B] reaches every SSM mixer. For
+    vlm, ``patches`` [B,P,D] are projected and prepended (S = P + S_text)."""
     h = embed_tokens(tokens, params["embed"])
+    if cfg.family == "vlm":
+        if patches is None or patches.dim() != 3 or patches.shape[1] != cfg.num_patches:
+            raise ValueError(f"a vlm needs its patch embeddings: pass patches=[B, "
+                             f"{cfg.num_patches}, {cfg.d_model}] (P = cfg.num_patches)")
+        h = torch.cat([patches.to(h.dtype) @ params["patch_proj"], h], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: Optional[List[Dict[str, Any]]] = [] if collect_cache else None
     for i in range(cfg.num_layers):
@@ -237,9 +246,9 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = Fa
 def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Any]:
     """ParamSpec tree of the decode cache; axes name the batch dim for ``insert_slot``.
 
-    dense/moe: ``attn`` [L, B, S, ...]. hybrid: ``attn_global`` [n_glob, B, S,
-    ...] and ``attn_sliding`` [n_slide, B, w, ...], a ring of w = min(window,
-    S) slots. ssm/hybrid: ``ssm`` h [L, B, H, P, N] float32 and conv_buf
+    dense/moe/vlm: ``attn`` [L, B, S, ...] (a vlm's S counts its patches).
+    hybrid: ``attn_global`` [n_glob, B, S, ...] and ``attn_sliding``
+    [n_slide, B, w, ...], a ring of w = min(window, S) slots. ssm/hybrid: ``ssm`` h [L, B, H, P, N] float32 and conv_buf
     [L, B, wc-1, conv_ch]."""
     dh, k, L = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_layers
 
@@ -251,7 +260,7 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Any]:
                                       dtype="int32")}
 
     spec: Dict[str, Any] = {"pos": ParamSpec((batch,), ("batch",), dtype="int32")}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         spec["attn"] = kv(L, cache_len, "cache_seq")
     if cfg.family == "hybrid":
         n_glob = len(cfg.global_attn_layers)
@@ -268,16 +277,8 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Any]:
 
 
 def empty_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
-    """Zero K/V and SSM state, ``slot_pos`` = -1 (empty), ``pos`` = 0."""
-    dev = resolve_device(device)
-
-    def mk(s: ParamSpec):
-        dt = torch_dtype(s.dtype or CACHE_DTYPE)
-        if s.dtype == "int32":
-            return torch.full(s.shape, -1 if len(s.shape) >= 3 else 0, dtype=dt, device=dev)
-        return torch.zeros(s.shape, dtype=dt, device=dev)
-
-    return tree_map(mk, cache_spec(cfg, batch, cache_len))
+    """Zero K/V and SSM state, ``slot_pos`` = -1 (empty), ``pos`` = 0; K/V in bf16."""
+    return empty_tree(cache_spec(cfg, batch, cache_len), device, CACHE_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +296,17 @@ def _sliding_ring(prompt_lens: torch.Tensor, w: int) -> Tuple[torch.Tensor, torc
     return torch.where(t >= 0, t, t + w), torch.where(t >= 0, t, -1).to(torch.int32)
 
 
-def prefill(params, tokens, prompt_lens, cfg: ModelConfig):
+def prefill(params, tokens, prompt_lens, cfg: ModelConfig, *, patches=None):
     """Forward the prompt, build the decode cache, return last-token logits.
 
     tokens [B, S] padded to S; prompt_lens [B] actual lengths (<= S). The
     cache length is S; slots past a prompt's length are empty (-1).
+
+    A vlm's sequence is its P patches, then the text: the cache has P + S
+    slots, of which the first P + prompt_len are valid, and ``pos`` is
+    P + prompt_len, the position of the next token. The reference sets ``pos``
+    to prompt_len (``repro/models/transformer.py:449``), so its first decode
+    step rotates by, and overwrites the slot of, a position inside the prompt.
 
     A hybrid's sliding layers keep each prompt's trailing window
     (``_sliding_ring``). The reference (``repro/models/transformer.py:466-474``)
@@ -307,22 +314,25 @@ def prefill(params, tokens, prompt_lens, cfg: ModelConfig):
     prompt positions before S - w when the prompt is shorter than S > w; the
     two agree exactly when every prompt fills S or when S <= w.
     """
-    bsz, s = tokens.shape
+    bsz = tokens.shape[0]
     L = cfg.num_layers
     h, caches, _ = forward_hidden(params, tokens, cfg, collect_cache=True,
-                                  prompt_lens=prompt_lens)
-    last = torch.clamp(prompt_lens - 1, min=0).long()
+                                  prompt_lens=prompt_lens, patches=patches)
+    s = h.shape[1]
+    n_patch = s - tokens.shape[1]               # P for a vlm, else 0
+    valid_lens = prompt_lens + n_patch
+    last = torch.clamp(prompt_lens - 1, min=0).long() + n_patch
     h_last = h[torch.arange(bsz, device=h.device), last]
     logits = (h_last @ lm_head_weight(params, cfg)).float()
 
     ar = torch.arange(s, device=tokens.device)[None, :]
-    slot_pos = torch.where(ar < prompt_lens[:, None], ar, -1).to(torch.int32)
+    slot_pos = torch.where(ar < valid_lens[:, None], ar, -1).to(torch.int32)
 
     def stack(key, layers, fn=lambda t: t):
         return torch.stack([fn(caches[i][key]) for i in layers])
 
-    cache: Dict[str, Any] = {"pos": prompt_lens.to(torch.int32)}
-    if cfg.family in ("dense", "moe"):
+    cache: Dict[str, Any] = {"pos": valid_lens.to(torch.int32)}
+    if cfg.family in ("dense", "moe", "vlm"):
         cache["attn"] = {"k": stack("k", range(L)), "v": stack("v", range(L)),
                          "slot_pos": slot_pos[None].repeat(L, 1, 1)}
     if cfg.family == "hybrid":
@@ -359,7 +369,7 @@ def decode_step(params, cache: Dict[str, Any], tokens, cfg: ModelConfig):
         lw = _layer_window(cfg, i)
         lc: Dict[str, Any] = {}
         ring = False
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             att, j = cache["attn"], i
         elif cfg.family == "hybrid" and lw:
             att, j, ring = cache["attn_sliding"], n_slide, True

@@ -6,12 +6,20 @@ time (batch-1, padded to the cache length), the first token is taken from
 the prefill logits, the request's cache is written into its slot, and then
 every slot, empty ones included, is decoded together once per token.
 Finished slots are freed immediately.
+
+``extras_fn(rid)`` gives a request's prefill keywords (``frames=`` for an
+encdec model, ``patches=`` for a vlm), as in the reference. A vlm's
+``cfg.num_patches`` patches take P of the cache's slots (P is 0 for the other
+families), so its text is cut and padded to cache_len - P and its prefill
+cache has cache_len slots. The reference pads the text to
+cache_len, so its vlm prefill cache has cache_len + P slots and cannot be
+written into the batched cache.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,11 +60,13 @@ class ContinuousBatcher:
     """Iteration-level scheduler. Host-side control, device-side steps, on
     the device the ``api`` was built for."""
 
-    def __init__(self, api: ModelApi, params, *, num_slots: int, cache_len: int):
+    def __init__(self, api: ModelApi, params, *, num_slots: int, cache_len: int,
+                 extras_fn: Optional[Callable[[int], Dict[str, torch.Tensor]]] = None):
         self.api = api
         self.params = params
         self.num_slots = num_slots
         self.cache_len = cache_len
+        self.extras_fn = extras_fn  # rid -> dict of prefill keyword tensors
         self.device = api.device
         self.cache = api.init_cache(num_slots, cache_len)
         self.batch_axes = _batch_axes(api, num_slots, cache_len)
@@ -92,11 +102,14 @@ class ContinuousBatcher:
             if slot is None:
                 return
             req = self.waiting.pop(0)
-            prompt = req.prompt[: self.cache_len]
-            pad = self.cache_len - len(prompt)
-            tokens = torch.tensor([prompt + [0] * pad], dtype=torch.int32, device=self.device)
+            kw = {k: v.to(self.device) for k, v in
+                  (self.extras_fn(req.rid) if self.extras_fn else {}).items()}
+            room = self.cache_len - self.api.cfg.num_patches
+            prompt = req.prompt[:room]
+            tokens = torch.tensor([prompt + [0] * (room - len(prompt))], dtype=torch.int32,
+                                  device=self.device)
             plens = torch.tensor([len(prompt)], dtype=torch.int32, device=self.device)
-            logits, one_cache = self.api.prefill(self.params, tokens, plens)
+            logits, one_cache = self.api.prefill(self.params, tokens, plens, **kw)
             first = int(torch.argmax(logits[0]))  # waits for the prefill
             req.first_token_at = time.perf_counter()
             insert_slot(self.cache, one_cache, slot, self.batch_axes)

@@ -6,7 +6,7 @@ decoding, or temperature sampling from an explicit ``torch.Generator``
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -14,7 +14,7 @@ from repro_torch.models.model import ModelApi
 
 
 class ServeSteps(NamedTuple):
-    prefill: Callable   # (params, tokens, prompt_lens) -> (logits, cache)
+    prefill: Callable   # (params, tokens, prompt_lens, **extras) -> (logits, cache)
     decode: Callable    # (params, cache, tokens) -> (logits, next_tokens, cache)
     sample: Callable    # (logits, generator, temperature) -> tokens
 
@@ -38,11 +38,15 @@ def build_serve_steps(api: ModelApi) -> ServeSteps:
 @torch.inference_mode()
 def generate(api: ModelApi, params, prompts: torch.Tensor, prompt_lens: torch.Tensor,
              max_new_tokens: int, *, generator: Optional[torch.Generator] = None,
-             temperature: float = 0.0) -> torch.Tensor:
+             temperature: float = 0.0,
+             extras: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Whole-batch generation: prompts [B, S] padded to the cache length S,
-    prompt_lens [B] -> tokens [B, max_new_tokens]. The production path is
-    the continuous batcher in ``repro_torch.serving.batching``."""
-    logits, cache = api.prefill(params, prompts.to(api.device), prompt_lens.to(api.device))
+    prompt_lens [B], ``extras`` the prefill's keywords (``frames=``,
+    ``patches=``) -> tokens [B, max_new_tokens]. The production path is the
+    continuous batcher in ``repro_torch.serving.batching``."""
+    extras = {k: v.to(api.device) for k, v in (extras or {}).items()}
+    logits, cache = api.prefill(params, prompts.to(api.device), prompt_lens.to(api.device),
+                                **extras)
     tok = _sample(logits, generator, temperature)
     out = [tok]
     for _ in range(max_new_tokens - 1):

@@ -1,9 +1,11 @@
 """The port's model against the JAX package's, on the smoke configs of the
-ported families: granite-8b (dense), olmoe-1b-7b (MoE, MHA),
-qwen3-moe-235b-a22b (MoE with GQA), mamba2-130m (SSM) and hymba-1.5b
-(parallel attention and SSM heads, sliding-window and global layers); and
-the hybrid prefill's sliding cache, where the port keeps each prompt's
-trailing window and the reference does not.
+decoder-only families: granite-8b, glm4-9b (G = 4 at smoke size, 16 at full
+width), qwen2.5-32b (QKV bias, drawn non-zero here) and deepseek-67b (dense),
+olmoe-1b-7b (MoE, MHA), qwen3-moe-235b-a22b (MoE with GQA), mamba2-130m (SSM)
+and hymba-1.5b (parallel attention and SSM heads, sliding-window and global
+layers); every registered config against the reference's; and the hybrid
+prefill's sliding cache, where the port keeps each prompt's trailing window
+and the reference does not. The vlm and encdec families have their own files.
 
 Weights come from ``repro``'s ``init_params`` and are carried across by
 ``repro_torch.bridge``; token inputs come from a numpy seed. Everything runs
@@ -21,21 +23,35 @@ from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
 from repro.models import transformer as jax_transformer  # noqa: E402
 from repro.models.model import build as jax_build  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro.configs import ARCH_IDS as JAX_ARCHS  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 
 ARCH = "granite-8b"
-ARCHS = ["granite-8b", "olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-130m", "hymba-1.5b"]
+ARCHS = ["granite-8b", "glm4-9b", "qwen2.5-32b", "deepseek-67b", "olmoe-1b-7b",
+         "qwen3-moe-235b-a22b", "mamba2-130m", "hymba-1.5b"]
 TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
        "bfloat16": dict(rtol=5e-2, atol=5e-1)}   # tests/test_serving.py:48
+
+
+def with_qkv_bias(jparams, cfg, seed=5):
+    """The JAX tree with non-zero ``bq``/``bk``/``bv`` (N(0, 0.5) from a numpy seed)
+    where the config has a QKV bias: the template's zeros would hide the bias path."""
+    if not cfg.qkv_bias:
+        return jparams
+    rng = np.random.default_rng(seed)
+    attn = dict(jparams["blocks"]["attn"])
+    for name in ("bq", "bk", "bv"):
+        attn[name] = jnp.asarray(0.5 * rng.standard_normal(attn[name].shape), attn[name].dtype)
+    return {**jparams, "blocks": {**jparams["blocks"], "attn": attn}}
 
 
 def _models(dtype, arch=ARCH):
     jcfg = jax_get_smoke(arch).replace(dtype=dtype)
     japi = jax_build(jcfg)
-    jparams = japi.init_params(jax.random.PRNGKey(0))
+    jparams = with_qkv_bias(japi.init_params(jax.random.PRNGKey(0)), jcfg)
     api = build(get_smoke(arch).replace(dtype=dtype), device="cpu")
     params = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     return japi, jparams, api, params
@@ -60,16 +76,23 @@ def _assert_cache_equal(tcache, jcache, tol):
                                        **tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def test_registry_holds_every_reference_arch_in_its_order():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert ARCH_IDS == JAX_ARCH_IDS and len(ARCH_IDS) == 10
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
 def test_configs_match_the_reference(arch):
     from repro.configs import get_config as jax_get_config
 
     for mine, ref in ((get_config(arch), jax_get_config(arch)), (get_smoke(arch), jax_get_smoke(arch))):
         for f in ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-                  "vocab_size", "head_dim", "tie_embeddings", "rope_theta", "norm_eps", "dtype",
-                  "num_experts", "experts_per_token", "moe_capacity_factor",
+                  "vocab_size", "head_dim", "qkv_bias", "tie_embeddings", "rope_theta", "norm_eps",
+                  "dtype", "num_experts", "experts_per_token", "moe_capacity_factor",
                   "shared_expert_d_ff", "ssm_state", "ssm_expand", "ssm_head_dim",
-                  "ssm_conv_dim", "ssm_chunk", "sliding_window", "global_attn_layers"):
+                  "ssm_conv_dim", "ssm_chunk", "sliding_window", "global_attn_layers",
+                  "encoder_layers", "encoder_frames", "num_patches"):
             assert getattr(mine, f) == getattr(ref, f), f
         assert mine.resolved_head_dim == ref.resolved_head_dim
         assert (mine.d_inner, mine.ssm_heads) == (ref.d_inner, ref.ssm_heads)
@@ -148,6 +171,26 @@ def test_prefill_decode_consistency(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_decode_consistency_ssm_hybrid(arch, dtype):
     _check_prefill_decode_consistency(arch, dtype)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen2.5-32b", "deepseek-67b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_decode_consistency_dense(arch, dtype):
+    _check_prefill_decode_consistency(arch, dtype)
+
+
+def test_qkv_bias_reaches_the_logits():
+    """qwen2.5's drawn biases move the port's logits (so the comparisons above
+    hold the bias path, not a zero)."""
+    _, _, api, params = _models("float32", "qwen2.5-32b")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 384, size=(1, 12)).astype(np.int32))
+    plens = torch.tensor([12], dtype=torch.int32)
+    zero = {**params, "blocks": {**params["blocks"], "attn": {
+        k: torch.zeros_like(v) if k in ("bq", "bk", "bv") else v
+        for k, v in params["blocks"]["attn"].items()}}}
+    assert all(params["blocks"]["attn"][b].abs().max() > 0.1 for b in ("bq", "bk", "bv"))
+    with_bias, without = api.prefill(params, tokens, plens)[0], api.prefill(zero, tokens, plens)[0]
+    assert (with_bias - without).abs().max() > 1e-2
 
 
 def _check_prefill_decode_consistency(arch, dtype):
