@@ -34,7 +34,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      another set of experts, for mamba2 and hymba also the final SSM state);
      and a float32 granite (float32 queries against its bf16 cache) and a
      float32 whisper-base (one request decoding past its 448-slot cache)
-     served through the batcher on the card, with the CPU batcher's tokens.
+     served through the batcher on the card, with the CPU batcher's tokens;
+  5. platform, right after granite-8b's serving run in phase 3, on its model
+     and weights: Dandelion's Table 1 on the card (``repro_torch.core``'s
+     dandelion, snapshot and microvm backends with the code in RAM and on
+     disk, over a 1x1 float32 matmul and an 8-layer tanh MLP; each payload's
+     first microvm boot of the process timed apart; outputs against the eager
+     payload; dandelion < snapshot < microvm on the MLP), a payload that
+     returns with ~20 ms of device work queued billed at least that long by a
+     ``WorkerNode``, granite-8b served through the ``serve_lm`` composition
+     on a ``WorkerNode`` (tokens equal to the batcher run directly, exact
+     launch counts, which join the ``kernels`` line's), and
+     ``trace_capture``'s CUDA-event step calibration at batches 1, 2 and 4.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -54,9 +65,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense), at its 700 W limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
 SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "glm4-9b", "qwen2.5-32b",
@@ -83,6 +91,12 @@ NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 5, "vlm": 2}
 # card may route differently from the float32 CPU run (bf16 rounding moves
 # near-ties between the k-th and the next expert); float32 must route alike
 MAX_ROUTE_DIFF = {"bfloat16": 0.25, "float32": 0.0}
+# phase 5 (platform): granite-8b's model and weights, after its serving run
+PLATFORM_ARCH, PLATFORM_REQUESTS, PLATFORM_NEW = "granite-8b", 4, 16
+CALIBRATION_BATCHES = (1, 2, 4)
+MLP_LAYERS, MLP_WIDTH = 8, 64          # tests/test_coldstart.py's MLP
+TABLE1_SAMPLES = {"dandelion": 9, "snapshot": 9, "microvm": 3}
+SLEEP_MS = 20.0                        # device time of the billing check's payload
 # phase 4: the final SSM state, card against CPU (tests/test_kernels.py::_tol in float32;
 # in bf16 every activation of the stack is rounded, as for the logits' 5e-2)
 STATE_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
@@ -90,6 +104,18 @@ STATE_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_spec():
+    """The published constants of one H100 SXM at its 700 W limit
+    (``repro_torch.config.parallel.H100_SXM``, NVIDIA's data sheet, dense)."""
+    from repro_torch.config.parallel import H100_SXM
+    return H100_SXM
+
+
+def peak_flops(op_type: str) -> float:
+    spec = card_spec()
+    return {"bfloat16": spec.peak_flops, "float32": spec.peak_flops_f32}[op_type]
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +129,12 @@ class Timer:
     calls rotate over sets of inputs: ``copies(nbytes)`` sets, enough that
     together they move twice the 50 MB L2, so each call finds its inputs
     cold. Past ``MAX_COPIES`` sets a shape stays small enough to stay in the
-    L2 (under ``L2_BYTES / MAX_COPIES`` a call: the decode rmsnorm, the
+    L2 (under ``H100_SXM.l2_bytes / MAX_COPIES`` a call: the decode rmsnorm, the
     ragged test shapes); its time is then flagged ``L2-warm``. If the host
     takes longer to enqueue than the sleep lasts, the time is flagged
     ``host-bound`` (it then includes host gaps).
     """
 
-    L2_BYTES = 50e6
     MIN_COPIES, MAX_COPIES = 4, 16
     SLEEP_CYCLES = 200_000_000
 
@@ -125,7 +150,7 @@ class Timer:
     @classmethod
     def copies(cls, nbytes: float) -> int:
         """Input sets to rotate over for a call that moves ``nbytes``."""
-        return min(cls.MAX_COPIES, max(cls.MIN_COPIES, math.ceil(2 * cls.L2_BYTES / nbytes)))
+        return min(cls.MAX_COPIES, max(cls.MIN_COPIES, math.ceil(2 * card_spec().l2_bytes / nbytes)))
 
     def ms(self, fns, iters: int = 24):
         """(ms per call, host_bound) for calls cycling over ``fns``."""
@@ -148,8 +173,8 @@ class Timer:
 def bound_ms(nbytes: float, flops: float, op_type: str):
     """Least time for the work: bytes over peak bandwidth or operations over the peak
     rate of their type, whichever is larger."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[op_type] * 1e3
+    t_bytes = nbytes / card_spec().hbm_bandwidth * 1e3
+    t_ops = flops / peak_flops(op_type) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -164,8 +189,8 @@ def phase_card(torch) -> str:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     name = smi.splitlines()[0]
     variant = "the SXM part" if "HBM3" in name else "the SXM part, NOT this variant: bounds too low"
-    log(f"[card] bounds use {variant}'s peaks: {PEAK_BYTES_PER_S / 1e12} TB/s, "
-        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16, {PEAK_FLOPS['float32'] / 1e12:.0f} "
+    log(f"[card] bounds use {variant}'s peaks: {card_spec().hbm_bandwidth / 1e12} TB/s, "
+        f"{peak_flops('bfloat16') / 1e12:.0f} TFLOP/s bf16, {peak_flops('float32') / 1e12:.0f} "
         f"TFLOP/s float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -233,7 +258,7 @@ def phase_kernels(torch, timer: Timer):
         (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
         l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
         b_ms, b_by = bound_ms(nbytes, flops, op_type)
-        warm = len(sets) * nbytes < Timer.L2_BYTES
+        warm = len(sets) * nbytes < card_spec().l2_bytes
         flag = lambda hb: " (host-bound)" * hb + " (L2-warm)" * warm
         log(f"[kernels] {name} {case} {label}: kernel_ms {k_ms:.5f}{flag(k_hb)} "
             f"plain_ms {p_ms:.5f}{flag(p_hb)} "
@@ -594,7 +619,7 @@ def serve_depth(cfg, budget_params: int) -> int:
 
 def phase_serve(torch, arch: str, timer: Timer):
     """Serve ``arch`` at full width (``DEPTH_CUT_ARCHS`` cut in depth by ``serve_depth``);
-    returns its run's launch counts."""
+    returns its run's launch counts and the model it served, (cfg, api, params)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build
@@ -689,7 +714,7 @@ def phase_serve(torch, arch: str, timer: Timer):
                                  f"but the profile shows no device time in its group ({group})")
     if cfg.family == "moe":
         moe_layer_times(torch, timer, cfg, params)
-    return counts
+    return counts, (cfg, api, params)
 
 
 def moe_layer_times(torch, timer: Timer, cfg, params):
@@ -953,6 +978,213 @@ def reference_batcher(torch, arch: str, cache_len: int, prompt_lens, max_new: in
         raise AssertionError(f"{arch}: float32 batcher on the card disagrees with the CPU batcher")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the Dandelion worker node on the card
+# ---------------------------------------------------------------------------
+def _table1_registry(torch):
+    """Two payloads on the card, each with its eager body as the dandelion
+    function: the paper's Table-1 1x1 matmul, in float32 (CUDA has no integer
+    matmul; the reference's is int64), and the 8-layer, width-64 tanh MLP of
+    tests/test_coldstart.py, float32 weights from a seeded generator."""
+    from repro_torch.core import FunctionRegistry, Item
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ws = torch.randn((MLP_LAYERS, MLP_WIDTH, MLP_WIDTH), generator=gen, device="cuda") * 0.2
+
+    def matmul(x):
+        return x @ x
+
+    def mlp(x):
+        for i in range(MLP_LAYERS):
+            x = torch.tanh(x @ ws[i])
+        return x
+
+    reg = FunctionRegistry()
+    payloads = {}
+    for name, fn, x in (("matmul_1", matmul, torch.ones((1, 1), device="cuda")),
+                        ("mlp", mlp, torch.randn((4, MLP_WIDTH), generator=gen, device="cuda"))):
+        def body(inputs, fn=fn):
+            return {"out": [Item(fn(torch.as_tensor(inputs["x"][0].data, device="cuda")).cpu()
+                                 .numpy())]}
+
+        reg.register_function(name, body, torch_fn=fn, example_args=(torch.zeros_like(x),),
+                              context_bytes=1 << 20)
+        payloads[name] = ({"x": [Item(x.cpu().numpy())]}, fn(x).cpu())
+    return reg, payloads
+
+
+def platform_table1(torch):
+    """Table 1 on the card: every backend with the code in the RAM cache and on
+    disk (``benchmarks/table1_coldstart.py``), medians of ``TABLE1_SAMPLES``; each
+    payload's first microvm boot of the process timed apart; each backend's
+    output against the eager payload's."""
+    from repro_torch.core import BACKENDS, cold_start, measure
+
+    reg, payloads = _table1_registry(torch)
+    totals = {}
+    for name, (inputs, want) in payloads.items():
+        t0 = time.perf_counter()
+        ctx, bd, _ = cold_start(reg, name, inputs, backend="microvm", device="cuda")
+        ctx.free()
+        log(f"[platform] table1 {name} microvm first boot of the process: execute_setup "
+            f"{bd.execute_setup * 1e6:.0f} us ({time.perf_counter() - t0:.2f} s; Inductor's "
+            f"start-up and first code generation for this payload)")
+        for backend in BACKENDS:
+            for cached in (True, False):
+                if not cached:
+                    reg.evict(name)
+                bd, exec_s = measure(reg, name, inputs, backend=backend, cached=cached,
+                                     samples=TABLE1_SAMPLES[backend], device="cuda")
+                us = bd.us()
+                totals[(name, backend, cached)] = bd.total
+                log(f"[platform] table1 {name} {backend} {'ram' if cached else 'disk'} "
+                    f"(median of {TABLE1_SAMPLES[backend]}): marshal {us['marshal_us']:.1f} us, "
+                    f"load {us['load_us']:.1f}, transfer {us['transfer_us']:.1f}, execute_setup "
+                    f"{us['execute_setup_us']:.1f}, output {us['output_us']:.1f}; total "
+                    f"{us['total_us']:.1f} us; execute {exec_s * 1e6:.1f} us")
+            ctx, _, run = cold_start(reg, name, inputs, backend=backend, device="cuda")
+            got = torch.as_tensor(run()["out"][0].data)
+            ctx.free()
+            err = (got - want).abs().max().item()
+            ok = got.shape == want.shape and err <= TOL["float32"]
+            log(f"[platform] table1 {name} {backend}: output vs the eager payload max_abs_err "
+                f"{err:.3e} (tolerance {TOL['float32']}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: the {backend} backend's output disagrees")
+    for cached in (True, False):
+        d, s, m = (totals[("mlp", b, cached)] for b in BACKENDS)
+        ok = d < s < m
+        log(f"[platform] table1 mlp {'ram' if cached else 'disk'}: dandelion {d * 1e6:.1f} us < "
+            f"snapshot {s * 1e6:.1f} us < microvm {m * 1e6:.1f} us: {ok}")
+        if not ok:
+            raise AssertionError("Table 1 ordering dandelion < snapshot < microvm fails on the MLP")
+
+
+def platform_billing(torch):
+    """A payload that returns with ~``SLEEP_MS`` of device work queued
+    (``torch.cuda._sleep``) must be billed at least that long by the node."""
+    from repro_torch.core import Composition, FunctionRegistry, Item, WorkerNode
+
+    clocks = card_clocks()
+    max_mhz = float(clocks.split(",")[1].split()[0])
+    cycles = int(SLEEP_MS * max_mhz * 1e3)  # at the maximum SM clock; longer at a lower one
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    launch_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+
+    def sleep(inputs):
+        torch.cuda._sleep(cycles)
+        return {"out": [Item(torch.ones(4, device="cuda"))]}
+
+    reg = FunctionRegistry()
+    reg.register_function("sleep", sleep, memoize=False, pure_unsafe=True)
+    app = Composition("sleep")
+    v = app.compute("sleep", "sleep", inputs=("x",), outputs=("out",))
+    app.bind_input("x", v["x"])
+    app.bind_output("out", v["out"])
+    node = WorkerNode(reg, num_slots=2, comm_slots=1)  # one compute slot
+    done = []
+    node.invoke(app, {"x": [Item(b"")]}, on_done=done.append)
+    node.run()
+    billed_ms = 1e3 * done[0].latency
+    ok = not done[0].failed and billed_ms >= 0.95 * device_ms
+    log(f"[platform] billing: SM clock {clocks} -> {max_mhz * 1e3:.0f} cycles/ms at the maximum; "
+        f"_sleep({cycles}) takes {device_ms:.3f} ms of device time (CUDA events) and returns to "
+        f"the host in {launch_ms:.3f} ms; the node bills the payload {billed_ms:.3f} ms (need >= "
+        f"0.95 x {device_ms:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the node billed a payload less than its device time")
+
+
+def platform_serve(torch, cfg, api, params):
+    """granite through ``serve_lm`` on a WorkerNode: the tokens must equal the
+    payload's call sequence run on one batcher directly, the launch counts the
+    expected ones. Returns the node run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+    from repro_torch.serving.serve_lm import serve_on_node, tokens_of
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(64, 513, size=PLATFORM_REQUESTS)]
+    batcher = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    node, runs = serve_on_node(batcher, prompts, PLATFORM_NEW, num_slots=4, comm_slots=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if any(r is None or r.failed for r in runs):
+        raise AssertionError(f"serve_lm: a request did not complete: {runs}")
+    got = [tokens_of(r) for r in runs]
+
+    direct = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    want = []
+    for rid, p in enumerate(prompts, start=1):
+        direct.submit(Request(rid, p, max_new_tokens=PLATFORM_NEW))
+        want.append(direct.run_to_completion()[rid])
+    expected = expected_launches(cfg, len(prompts), batcher.steps)
+    lat = node.latency.summary()
+    log(f"[platform] serve_lm {cfg.name} on a WorkerNode (4 slots, 1 comm slot): {len(prompts)} "
+        f"requests of {PLATFORM_NEW} new tokens, prompts {[len(p) for p in prompts]}, cache "
+        f"{SERVE_CACHE}, {batcher.steps} decode steps; virtual latency (billed from the measured "
+        f"executions) " + ", ".join(f"{k} {v:.3f}" for k, v in lat.items())
+        + f"; per request {[round(r.latency * 1e3, 3) for r in runs]} ms; wall {wall:.3f} s; "
+        f"committed avg {node.committed_avg_bytes / 2**20:.3f} MiB, peak "
+        f"{node.committed_peak_bytes / 2**20:.3f} MiB, failed {node.failed_count}")
+    for r, g in zip(runs, got):
+        log(f"[platform] serve_lm request: {len(g)} tokens, first {g[:4]}")
+    for name, n in expected.items():
+        log(f"[platform] serve_lm launches {name}: {counts[name]} (expected {n})")
+    ok = got == want and all(len(g) == PLATFORM_NEW for g in got) and node.failed_count == 0
+    log(f"[platform] serve_lm tokens equal the batcher run directly: {got == want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("serve_lm through the node disagrees with the batcher run directly")
+    if counts != expected:
+        raise AssertionError(f"serve_lm: launch counts {counts} != expected {expected}")
+    return counts
+
+
+def platform_calibration(torch, api, params):
+    """``trace_capture`` at full width: CUDA-event step times, the affine fit,
+    the calibrated ``BatchStepModel`` and its residuals (printed, not bounded)."""
+    from repro_torch.serving import trace_capture as tc
+
+    timings = tc.capture_step_timings(api, params, batches=CALIBRATION_BATCHES,
+                                      cache_len=SERVE_CACHE, prompt_len=256, samples=3)
+    for t in timings:
+        log(f"[platform] step timing batch {t.batch}: prefill {t.prefill_s * 1e3:.3f} ms, decode "
+            f"{t.decode_s * 1e3:.3f} ms (median of 3, CUDA events)")
+    fixed, per_seq = tc.fit_affine(timings)
+    model = tc.calibrated_batch_model(timings)
+    res = tc.calibration_residuals(timings, model)
+    log(f"[platform] affine fit: fixed {fixed * 1e3:.4f} ms + {per_seq * 1e3:.4f} ms per sequence; "
+        f"{model}; residuals " + ", ".join(f"batch {b}: {r:+.4f}" for b, r in res))
+
+
+def phase_platform(torch, cfg, api, params):
+    """Dandelion's worker node on the card, after ``cfg``'s serving run on its model:
+    Table 1, billing of queued device work, serve_lm through a WorkerNode (its
+    launch counts are returned), and the step calibration."""
+    t0 = time.perf_counter()
+    platform_table1(torch)
+    platform_billing(torch)
+    counts = platform_serve(torch, cfg, api, params)
+    platform_calibration(torch, api, params)
+    log(f"[platform] {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -977,8 +1209,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts = {}  # launches summed over the main paths' runs
     for arch in SERVE_ARCHS:
-        for name, n in phase_serve(torch, arch, timer).items():
-            counts[name] = counts.get(name, 0) + n
+        arch_counts, model = phase_serve(torch, arch, timer)
+        runs = [arch_counts]
+        if arch == PLATFORM_ARCH:  # the platform phase serves the same model and weights
+            runs.append(phase_platform(torch, *model))
+        for run in runs:
+            for name, n in run.items():
+                counts[name] = counts.get(name, 0) + n
+        del model
         gc.collect()  # free one model before the next is built
         torch.cuda.empty_cache()
     for k in kernels:

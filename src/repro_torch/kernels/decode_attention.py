@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.config.parallel import H100_SXM
 from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.attention import decode_attention as plain
@@ -33,7 +34,7 @@ MAX_HEAD_DIM = 128     # kMaxDh in the source; head_dim is also a power of two o
 MAX_SPLIT_SLOTS = 512  # kMaxSplit: slots per split
 ROWS_PER_BLOCK = 8     # query rows of a GQA group per block (larger groups in chunks)
 SPLIT_ALIGN = 16       # slots per split are a multiple of this
-SMS = 132              # streaming multiprocessors of an H100 SXM
+SMS = H100_SXM.sm_count  # streaming multiprocessors of the card
 BLOCKS_PER_SM = 2      # the grid split_plan aims for, where S allows
 
 # (q dtype, cache dtype) -> entry; the output has the cache's dtype
