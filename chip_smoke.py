@@ -44,8 +44,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      returns with ~20 ms of device work queued billed at least that long by a
      ``WorkerNode``, granite-8b served through the ``serve_lm`` composition
      on a ``WorkerNode`` (tokens equal to the batcher run directly, exact
-     launch counts, which join the ``kernels`` line's), and
-     ``trace_capture``'s CUDA-event step calibration at batches 1, 2 and 4.
+     launch counts, which join the ``kernels`` line's), the same composition
+     declared through ``repro_torch.sdk`` on an ``sdk.Platform`` of one node and
+     on an elastic cluster of 1-2 nodes (tokens, exact counts, which join the
+     ``kernels`` line's, each request's virtual latency at least its payload's
+     wall), the MLP as an ``sdk.function`` ``torch_fn`` payload on a snapshot
+     node against the eager payload, ``sdk.verify`` listing ``generate`` as
+     unsafe, and ``trace_capture``'s CUDA-event step calibration at batches 1,
+     2 and 4.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -979,30 +985,36 @@ def reference_batcher(torch, arch: str, cache_len: int, prompt_lens, max_new: in
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the Dandelion worker node on the card
+# phase 5: the Dandelion worker node and SDK on the card
 # ---------------------------------------------------------------------------
-def _table1_registry(torch):
-    """Two payloads on the card, each with its eager body as the dandelion
-    function: the paper's Table-1 1x1 matmul, in float32 (CUDA has no integer
-    matmul; the reference's is int64), and the 8-layer, width-64 tanh MLP of
-    tests/test_coldstart.py, float32 weights from a seeded generator."""
-    from repro_torch.core import FunctionRegistry, Item
-
+def _mlp(torch):
+    """The 8-layer, width-64 tanh MLP of tests/test_coldstart.py, float32 weights
+    from a seeded generator on the card, and an input of 4 rows: (mlp, x)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     ws = torch.randn((MLP_LAYERS, MLP_WIDTH, MLP_WIDTH), generator=gen, device="cuda") * 0.2
-
-    def matmul(x):
-        return x @ x
 
     def mlp(x):
         for i in range(MLP_LAYERS):
             x = torch.tanh(x @ ws[i])
         return x
 
+    return mlp, torch.randn((4, MLP_WIDTH), generator=gen, device="cuda")
+
+
+def _table1_registry(torch):
+    """Two payloads on the card, each with its eager body as the dandelion
+    function: the paper's Table-1 1x1 matmul, in float32 (CUDA has no integer
+    matmul; the reference's is int64), and ``_mlp``."""
+    from repro_torch.core import FunctionRegistry, Item
+
+    def matmul(x):
+        return x @ x
+
+    mlp, x_mlp = _mlp(torch)
     reg = FunctionRegistry()
     payloads = {}
     for name, fn, x in (("matmul_1", matmul, torch.ones((1, 1), device="cuda")),
-                        ("mlp", mlp, torch.randn((4, MLP_WIDTH), generator=gen, device="cuda"))):
+                        ("mlp", mlp, x_mlp)):
         def body(inputs, fn=fn):
             return {"out": [Item(fn(torch.as_tensor(inputs["x"][0].data, device="cuda")).cpu()
                                  .numpy())]}
@@ -1112,9 +1124,7 @@ def platform_serve(torch, cfg, api, params):
     from repro_torch.serving.batching import ContinuousBatcher, Request
     from repro_torch.serving.serve_lm import serve_on_node, tokens_of
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.integers(64, 513, size=PLATFORM_REQUESTS)]
+    prompts = _platform_prompts(cfg)
     batcher = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1155,6 +1165,139 @@ def platform_serve(torch, cfg, api, params):
     return counts
 
 
+def _platform_prompts(cfg):
+    """phase 5's requests: ``PLATFORM_REQUESTS`` prompts of 64-512 tokens."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(64, 513, size=PLATFORM_REQUESTS)]
+
+
+def _sdk_serve(torch, what, cfg, batcher, app, prompts, platform, want, walls):
+    """Serve ``prompts`` through ``serve_lm`` on ``platform`` with the launch
+    counters set to 0 just before and read just after; check the tokens against
+    ``want``, the counts against the expected ones and each request's virtual
+    latency against its payload's measured wall. Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.serve_lm import serve_on_platform, tokens_of
+
+    steps0 = batcher.steps
+    walls.clear()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = serve_on_platform(batcher, prompts, PLATFORM_NEW, platform, app=app)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if not all(h.done for h in handles):
+        raise AssertionError(f"sdk {what}: a request did not complete: "
+                             f"{[h.failed for h in handles]}")
+    got = [tokens_of(h) for h in handles]
+    steps = batcher.steps - steps0
+    expected = expected_launches(cfg, len(prompts), steps)
+    lat = platform.latency.summary()
+    log(f"[platform] sdk {what}: {len(prompts)} requests of {PLATFORM_NEW} new tokens, {steps} "
+        f"decode steps; nodes {[n.name for n in platform.nodes]}; latency.summary() (virtual) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in lat.items())
+        + f"; per request {[round(h.latency * 1e3, 3) for h in handles]} ms; payload walls "
+        f"{[round(walls[tuple(p)] * 1e3, 3) for p in prompts]} ms; wall {wall:.3f} s")
+    for name, n in expected.items():
+        log(f"[platform] sdk {what} launches {name}: {counts[name]} (expected {n})")
+    ok = got == want and all(len(g) == PLATFORM_NEW for g in got)
+    log(f"[platform] sdk {what} tokens equal the batcher run directly: {got == want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"sdk {what}: serve_lm disagrees with the batcher run directly")
+    if counts != expected:
+        raise AssertionError(f"sdk {what}: launch counts {counts} != expected {expected}")
+    short = [(round(h.latency, 6), round(walls[tuple(p)], 6)) for h, p in zip(handles, prompts)
+             if h.latency < walls[tuple(p)]]
+    if short:
+        raise AssertionError(f"sdk {what}: virtual latency below the payload's wall: {short}")
+    return counts
+
+
+def platform_sdk(torch, cfg, api, params):
+    """Dandelion's SDK front door on the card, on ``cfg``'s model: (a) ``serve_lm``
+    declared through ``repro_torch.sdk`` on a one-node ``sdk.Platform``
+    (examples/serve_lm.py's shape), (b) the same app object on an elastic
+    cluster of 1-2 nodes (examples/quickstart.py's step 5), both under strict
+    verification, each with tokens equal to the batcher run directly and exact
+    launch counts; (c) the MLP as a ``torch_fn`` payload through
+    ``sdk.function`` on a snapshot-backend node, against the eager payload; (d)
+    ``sdk.verify`` lists ``generate`` as unsafe. Returns (a)'s and (b)'s counts."""
+    from repro_torch import sdk
+    from repro_torch.core import Item
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+    from repro_torch.serving.serve_lm import serve_lm_sdk_app
+
+    prompts = _platform_prompts(cfg)
+    direct = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    want = []
+    for rid, p in enumerate(prompts, start=1):
+        direct.submit(Request(rid, p, max_new_tokens=PLATFORM_NEW))
+        want.append(direct.run_to_completion()[rid])
+    del direct
+
+    # each payload's measured wall (the card synchronised), keyed by its prompt
+    batcher = ContinuousBatcher(api, params, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    walls, last, submit, run = {}, [], batcher.submit, batcher.run_to_completion
+
+    def timed_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls[tuple(last[-1])] = time.perf_counter() - t0
+        return out
+
+    def recorded_submit(req):
+        last.append(req.prompt)
+        submit(req)
+
+    batcher.submit, batcher.run_to_completion = recorded_submit, timed_run
+    app = serve_lm_sdk_app(batcher, PLATFORM_NEW)
+    counts = [_sdk_serve(torch, "node", cfg, batcher, app, prompts, sdk.Platform(
+        node=sdk.NodeSpec(num_slots=4, comm_slots=1), verify="strict"), want, walls)]
+    elastic = sdk.Platform(elastic=sdk.Elastic(
+        config=sdk.ControlPlaneConfig(min_nodes=1, max_nodes=2), node=sdk.NodeSpec(num_slots=4)),
+        verify="strict")
+    counts.append(_sdk_serve(torch, "elastic", cfg, batcher, app, prompts, elastic, want, walls))
+    cp = elastic.control_plane
+    log(f"[platform] sdk elastic: nodes booted {[n.name for n in elastic.nodes]}, node-count "
+        f"timeline {[(round(t, 3), int(n)) for t, n in cp.node_count_timeline.points]}, routing "
+        f"{cp.stats.summary()}")
+
+    mlp, x = _mlp(torch)
+
+    @sdk.function(inputs=("x",), outputs=("out",), torch_fn=mlp,
+                  example_args=(torch.zeros_like(x),))
+    def mlp_payload(ins):
+        return {"out": [Item(mlp(torch.as_tensor(ins["x"][0].data, device="cuda")).cpu().numpy())]}
+
+    snap = sdk.Platform(node=sdk.NodeSpec(num_slots=2, backend="snapshot"))
+    mlp_app = sdk.single_function_app(mlp_payload)
+    snap.deploy(mlp_app)
+    h = snap.invoke(mlp_app, {"x": [Item(x.cpu().numpy())]})
+    got = torch.as_tensor(h.result()["out"][0].data)
+    want_mlp = mlp(x).cpu()
+    err = (got - want_mlp).abs().max().item()
+    ok = (got.shape == want_mlp.shape and err <= TOL["float32"]
+          and snap.registry.get("mlp_payload").torch_fn is mlp)
+    log(f"[platform] sdk torch_fn payload on a snapshot node: billed {h.latency * 1e3:.3f} ms; "
+        f"output vs the eager payload max_abs_err {err:.3e} (tolerance {TOL['float32']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sdk.function's torch_fn payload disagrees on the snapshot backend")
+
+    report = sdk.verify(app)
+    log(f"[platform] sdk.verify(serve_lm): checked {list(report.checked)}, unsafe "
+        f"{list(report.unsafe)}, {len(report.waived)} waived, {len(report.blocking)} blocking")
+    if "generate" not in report.unsafe or report.blocking:
+        raise AssertionError(f"sdk.verify: generate not listed as unsafe: {report}")
+    return counts
+
+
 def platform_calibration(torch, api, params):
     """``trace_capture`` at full width: CUDA-event step times, the affine fit,
     the calibrated ``BatchStepModel`` and its residuals (printed, not bounded)."""
@@ -1173,13 +1316,17 @@ def platform_calibration(torch, api, params):
 
 
 def phase_platform(torch, cfg, api, params):
-    """Dandelion's worker node on the card, after ``cfg``'s serving run on its model:
-    Table 1, billing of queued device work, serve_lm through a WorkerNode (its
-    launch counts are returned), and the step calibration."""
+    """Dandelion's worker node and SDK on the card, after ``cfg``'s serving run on
+    its model: Table 1, billing of queued device work, serve_lm through a
+    WorkerNode and through ``sdk.Platform`` (the launch counts of these runs are
+    returned), and the step calibration."""
     t0 = time.perf_counter()
     platform_table1(torch)
     platform_billing(torch)
-    counts = platform_serve(torch, cfg, api, params)
+    counts = [platform_serve(torch, cfg, api, params)]
+    t1 = time.perf_counter()
+    counts += platform_sdk(torch, cfg, api, params)
+    log(f"[platform] platform_sdk {time.perf_counter() - t1:.1f} s")
     platform_calibration(torch, api, params)
     log(f"[platform] {time.perf_counter() - t0:.1f} s")
     return counts
@@ -1212,7 +1359,7 @@ def main() -> int:
         arch_counts, model = phase_serve(torch, arch, timer)
         runs = [arch_counts]
         if arch == PLATFORM_ARCH:  # the platform phase serves the same model and weights
-            runs.append(phase_platform(torch, *model))
+            runs += phase_platform(torch, *model)
         for run in runs:
             for name, n in run.items():
                 counts[name] = counts.get(name, 0) + n

@@ -4,11 +4,17 @@ Programming model (SS4): ``Composition`` DAGs of pure compute functions +
 platform communication functions, with all/each/key edge fan-out.
 
 Execution system (SS5-6): memory contexts, dispatcher, compute/comm
-engines, PI slot controller, cold-start backends, one worker node.
+engines, PI control plane, cold-start backends, cluster manager.
 
-Counterpart of ``repro.core``: the same names, except those of the
-modules not ported yet (``artifacts``, ``cluster``, ``control_plane``).
+Counterpart of ``repro.core``: the same names.
 """
+from repro_torch.core.artifacts import (
+    Artifact,
+    ArtifactCatalog,
+    P2PDistributor,
+    PrefetchConfig,
+)
+from repro_torch.core.cluster import ClusterManager, CrossNodePlacer, KeepWarmPlatform
 from repro_torch.core.coldstart import (
     BACKENDS,
     CodeCache,
@@ -18,6 +24,17 @@ from repro_torch.core.coldstart import (
     cold_start,
     measure,
     profile_from_measurement,
+)
+from repro_torch.core.control_plane import (
+    BatchRouter,
+    BurstPredictor,
+    ControlPlaneConfig,
+    ElasticControlPlane,
+    PredictorConfig,
+    ReplicaAutoscaler,
+    ReplicaConfig,
+    composition_batch_units,
+    composition_functions,
 )
 from repro_torch.core.context import MemoryContext, MemoryTracker
 from repro_torch.core.dag import Composition, Edge, PortRef, Vertex
@@ -45,12 +62,20 @@ from repro_torch.core.tracing import (
 from repro_torch.core.workloads import BatchStepModel, WeightStore
 
 __all__ = [
+    "Artifact",
+    "ArtifactCatalog",
     "BACKENDS",
+    "BatchRouter",
     "BatchStepModel",
+    "BurstPredictor",
+    "ClusterManager",
     "CodeCache",
     "ColdStartBreakdown",
     "ColdStartProfile",
     "Composition",
+    "ControlPlaneConfig",
+    "CrossNodePlacer",
+    "ElasticControlPlane",
     "Dispatcher",
     "Edge",
     "EngineSet",
@@ -62,13 +87,19 @@ __all__ = [
     "InvocationRun",
     "Item",
     "ItemSet",
+    "KeepWarmPlatform",
     "LatencyStats",
+    "ReplicaAutoscaler",
+    "ReplicaConfig",
     "LinkCounters",
     "MemoryContext",
     "MemoryTracker",
     "NodeCounters",
+    "P2PDistributor",
     "PayloadMemo",
     "PortRef",
+    "PredictorConfig",
+    "PrefetchConfig",
     "RoutingStats",
     "ThroughputStats",
     "SanitizationError",
@@ -82,6 +113,8 @@ __all__ = [
     "WeightStore",
     "WorkerNode",
     "cold_start",
+    "composition_batch_units",
+    "composition_functions",
     "fingerprint_sets",
     "make_set",
     "measure",

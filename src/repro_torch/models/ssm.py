@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import promote
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, resolve_device
 
 
 def param_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -149,9 +149,11 @@ def apply_ssm_decode(x_in: torch.Tensor, state: SSMState, p: Dict[str, torch.Ten
 
 
 def init_state(cfg: ModelConfig, batch: int, num_layers: Optional[int] = None,
-               device="cpu") -> SSMState:
-    """Zero decode state (h float32, conv_buf bf16); leaves are layer-stacked if
+               device="cuda") -> SSMState:
+    """Zero decode state (h float32, conv_buf bf16) on ``device`` (the card
+    unless the caller asks for the CPU); leaves are layer-stacked if
     ``num_layers`` is given."""
+    device = resolve_device(device)
     lead = (batch,) if num_layers is None else (num_layers, batch)
     h = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     cbuf = (cfg.ssm_conv_dim - 1, cfg.d_inner + 2 * cfg.ssm_state)
