@@ -51,7 +51,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      wall), the MLP as an ``sdk.function`` ``torch_fn`` payload on a snapshot
      node against the eager payload, ``sdk.verify`` listing ``generate`` as
      unsafe, and ``trace_capture``'s CUDA-event step calibration at batches 1,
-     2 and 4.
+     2 and 4;
+  6. train: (a) the ``autograd.Function`` of rmsnorm and of flash attention
+     (the kernel forward, the gradient formula backward) against autograd of
+     the plain version, at granite-8b's training shapes and whisper-base's
+     cross-attention, bf16 and f32, with forward+backward device times; (b)
+     ``train_loss`` and every leaf's gradient of granite-8b (full width, 2
+     layers) and whisper-base on the card in float32 and bf16 against the
+     CPU's float32, and olmoe-1b-7b and mamba2-130m refusing autograd (their
+     kernels have no backward); (c) granite-8b at full width cut to 16 layers
+     (its training state in 60 GB) trained for 10 steps at seq 4096, global
+     batch 8 in 4 micro-batches, remat "full", with exact launch counts; (d)
+     ``python -m repro_torch.training.train_lm``'s composition on
+     ``sdk.Platform`` (lm-100m), crashed at step 20 and resumed, under
+     deterministic algorithms: its losses equal an uninterrupted run's, and
+     that run's last checkpoint restores on the CPU into its state.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -106,6 +120,19 @@ SLEEP_MS = 20.0                        # device time of the billing check's payl
 # phase 4: the final SSM state, card against CPU (tests/test_kernels.py::_tol in float32;
 # in bf16 every activation of the stack is rounded, as for the logits' 5e-2)
 STATE_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+# phase 6 (train): (a) the kernels' gradients at granite-8b's training shapes and whisper's
+# cross-attention; (b) the relative norm error of each leaf's gradient, card against
+# the CPU's float32; (c) granite-8b at full width, cut to the deepest whose training
+# state (bf16 parameters and gradients, two float32 moments, the float32 accumulation
+# buffer: 16 bytes a parameter) fits 60 GB of the card's 80, trained at TRAIN_4K's seq
+# 4096, global batch 8 in 4 micro-batches; (d) train_lm's crash and resume
+TRAIN_RMS_SHAPE = (2, 4096, 4096)
+TRAIN_FLASH_CASES = (("granite", 2, 4096, 4096, 32, 8, 128, True),
+                     ("whisper cross", 1, 448, 1500, 8, 8, 64, False))
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+TRAIN_ARCH, TRAIN_BUDGET_BYTES, TRAIN_BYTES_PER_PARAM = "granite-8b", 60e9, 16
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 4, 10, 1e-3
+TRAIN_LM_STEPS = 40
 
 
 def log(msg: str) -> None:
@@ -1332,6 +1359,330 @@ def phase_platform(torch, cfg, api, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training on the card
+# ---------------------------------------------------------------------------
+def train_kernel_rows(torch, timer: Timer):
+    """(a) Each kernel's ``autograd.Function`` (the kernel forward, the gradient
+    formula backward) against ``torch.autograd`` of its plain version on the card,
+    forward and backward at the training shapes, in bf16 and float32, with device
+    times beside the bound of the same work and the library's forward+backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import rmsnorm as krms
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    has_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    lib_rms = getattr(F, "rms_norm", None)
+
+    def rnd(shape, dt, grad=True):
+        t = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
+        return t.requires_grad_(grad)
+
+    def fwd_bwd(f, inputs, g):
+        """The output of ``f(*inputs)`` and the gradients of ``inputs`` for ``g``."""
+        out = f(*inputs)
+        return (out.detach(), *torch.autograd.grad(out, inputs, g))
+
+    def record(name, case, make, labels, nbytes, flops, dtn):
+        sets = [make() for _ in range(Timer.copies(nbytes))]
+        kernel_fn, plain_fn, lib_fn = sets[0]
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        for label, g, w in zip(labels, got, want):
+            _check(f"{name} fwd+bwd {case} {dtn} {label}", g, w, dtn)
+        del got, want
+        (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
+        l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
+        b_ms, b_by = bound_ms(nbytes, flops, dtn)
+        flag = lambda hb: " (host-bound)" * hb
+        log(f"[train] {name} fwd+bwd {case} {dtn}: kernel_ms {k_ms:.5f}{flag(k_hb)} plain_ms "
+            f"{p_ms:.5f}{flag(p_hb)} library_ms "
+            f"{('%.5f' % l_ms) + flag(l_hb) if l_ms is not None else 'null'} bound_ms {b_ms:.5f} "
+            f"({b_by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); share of bound "
+            f"{b_ms / k_ms:.4f}{'' if l_ms is None else f', kernel/library {k_ms / l_ms:.2f}x'}")
+
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        size = torch.tensor([], dtype=dt).element_size()
+        shape = TRAIN_RMS_SHAPE
+
+        def make(dt=dt, shape=shape):
+            x, s, g = rnd(shape, dt), rnd(shape[-1:], dt), rnd(shape, dt, grad=False)
+            return (lambda: fwd_bwd(lambda a, b: krms.RMSNormFunction.apply(a, b, 1e-5), (x, s), g),
+                    lambda: fwd_bwd(lambda a, b: krms.plain(a, b, 1e-5), (x, s), g),
+                    (lambda: fwd_bwd(lambda a, b: lib_rms(a, (shape[-1],), b, 1e-5), (x, s), g))
+                    if lib_rms else None)
+
+        numel = int(np.prod(shape))
+        # x and g read, y and dx written; scale read, dscale written. About 12 float32
+        # operations an element (forward 4, backward 8)
+        record("rmsnorm", str(list(shape)), make, ("y", "dx", "dscale"),
+               (4 * numel + 2 * shape[-1]) * size, 12.0 * numel, dtn)
+
+        for what, b, sq, sk, hq, hkv, dh, causal in TRAIN_FLASH_CASES:
+            def make(b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, dt=dt):
+                q, k, v = rnd((b, sq, hq, dh), dt), rnd((b, sk, hkv, dh), dt), rnd((b, sk, hkv, dh), dt)
+                g = rnd((b, sq, hq, dh), dt, grad=False)
+
+                def lib(qt, kt, vt):
+                    return F.scaled_dot_product_attention(
+                        qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), is_causal=causal,
+                        enable_gqa=True).transpose(1, 2)
+
+                return (lambda: fwd_bwd(lambda *t: kfl.FlashAttentionFunction.apply(*t, causal, 0, None),
+                                        (q, k, v), g),
+                        lambda: fwd_bwd(lambda *t: kfl.plain(*t, causal=causal), (q, k, v), g),
+                        (lambda: fwd_bwd(lib, (q, k, v), g)) if has_gqa else None)
+
+            pairs = b * (sq * (sq + 1) // 2 if causal else sq * sk)
+            # q, k, v and dO read, O, dQ, dK and dV written; QKᵀ and PV forward, dV, dP,
+            # dQ and dK backward: 12·Hq·dh a query-key pair the mask allows
+            record("flash_attention",
+                   f"{what} q[{b},{sq},{hq},{dh}] kv[{b},{sk},{hkv},{dh}] "
+                   f"{'causal' if causal else 'non-causal'}", make, ("o", "dq", "dk", "dv"),
+                   2 * (2 * b * sq * hq + 2 * b * sk * hkv) * dh * size, 12.0 * hq * dh * pairs, dtn)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _loss_and_grads(torch, api, params, batch, remat):
+    """(loss, {leaf path: gradient}) of ``api.train_loss`` on ``batch``."""
+    from repro_torch.models.common import tree_items
+
+    leaves = [t.requires_grad_(True) for _, t in tree_items(params)]
+    loss = api.train_loss(params, batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip((p for p, _ in tree_items(params)), grads))
+
+
+def train_reference(torch):
+    """(b) ``train_loss`` and every leaf's gradient of granite-8b (full width, 2 layers,
+    seq 512, batch 2) and whisper-base (whole, 1500 frames, 384 tokens): the card in
+    float32 (TF32 off) and bf16 under remat "full", through the kernels' autograd
+    Functions, against the CPU's float32 plain run without remat, as the relative norm
+    error of each leaf. olmoe-1b-7b and mamba2-130m (2 layers) must refuse autograd,
+    naming ``moe_gmm`` and ``ssd``."""
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+    from repro_torch.training.data import make_batch, to_device
+
+    _no_tf32(torch)
+    for arch, seq in (("granite-8b", 512), ("whisper-base", 384)):
+        cfg = get_config(arch)
+        if cfg.family != "encdec":
+            cfg = cfg.replace(num_layers=2)
+        gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
+        params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+        batch = make_batch(cfg, ShapeConfig("reference", seq, 2, "train"), 0)
+        t0 = time.perf_counter()
+        want_loss, want = _loss_and_grads(
+            torch, cpu, cast_params(params, cpu.param_template, "cpu", torch.float32),
+            to_device(batch, "cpu", torch.float32), "none")
+        log(f"[train] {arch} {cfg.num_layers}-layer full width, batch 2 x {seq}: CPU float32 loss "
+            f"{want_loss.item():.6f} and {len(want)} gradients in {time.perf_counter() - t0:.1f} s")
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            loss, got = _loss_and_grads(torch, gpu, cast_params(params, gpu.param_template, "cuda", dt),
+                                        to_device(batch, "cuda", dt), "full")
+            errs = {path: ((g.float().cpu() - want[path]).norm() / want[path].norm()).item()
+                    for path, g in got.items()}
+            loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+            worst = max(errs, key=errs.get)
+            ok = max(errs.values()) <= GRAD_TOL[dtn] and loss_err <= GRAD_TOL[dtn] and all(
+                g.abs().max().item() > 0 for g in got.values())
+            log(f"[train] {arch} card {dtn} (remat full) vs CPU float32: loss {loss.item():.6f} "
+                f"(relative error {loss_err:.2e}); relative gradient norm error per leaf: max "
+                f"{errs[worst]:.2e} ({worst}), median {float(np.median(list(errs.values()))):.2e} "
+                f"over {len(errs)} leaves (need <= {GRAD_TOL[dtn]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{arch}: gradients on the card disagree with the CPU ({dtn})")
+            del got
+        del gpu, cpu, params, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, kernel in (("olmoe-1b-7b", "moe_gmm"), ("mamba2-130m", "ssd")):
+        cfg = get_config(arch).replace(num_layers=2)
+        api = build(cfg, device="cuda")
+        params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+        batch = to_device(make_batch(cfg, ShapeConfig("reference", 256, 2, "train"), 0), "cuda",
+                          torch.bfloat16)
+        try:
+            _loss_and_grads(torch, api, params, batch, "full")
+        except NotImplementedError as e:
+            ok = str(e).startswith(f"{kernel}:")
+            log(f"[train] {arch} under autograd on the card raises NotImplementedError: {e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{arch}: the refusal does not name {kernel}") from e
+        else:
+            raise AssertionError(f"{arch}: trained on the card, but {kernel} has no backward")
+        del api, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_run(torch):
+    """(c) granite-8b at full width, cut to the deepest whose training state fits
+    ``TRAIN_BUDGET_BYTES`` (``serve_depth`` of the parameters that many bytes hold): bf16, seq 4096, global
+    batch 8 in 4 micro-batches, remat "full", ``TRAIN_STEPS`` AdamW steps on one
+    repeated batch (it must overfit: the last loss below the first, every grad norm
+    finite), with exact launch counts (recompute included), then a profile of one
+    step by kernel group. Returns the counts."""
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.config.shapes import TRAIN_4K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build
+    from repro_torch.training.data import make_batch, to_device
+    from repro_torch.training.train_step import build_train_step, init_train_state
+
+    cfg = get_config(TRAIN_ARCH)
+    depth = serve_depth(cfg, int(TRAIN_BUDGET_BYTES // TRAIN_BYTES_PER_PARAM))
+    cfg = cfg.replace(num_layers=depth)
+    api = build(cfg, device="cuda")
+    plan = ParallelPlan(remat="full", grad_accum=TRAIN_ACCUM)
+    n = api.param_count()
+    log(f"[train] {TRAIN_ARCH}: depth cut from {get_config(TRAIN_ARCH).num_layers} to {depth} layers, "
+        f"{n / 1e9:.3f} B params, {TRAIN_BYTES_PER_PARAM} bytes a parameter = "
+        f"{n * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB (budget {TRAIN_BUDGET_BYTES / 1e9:.0f} GB)")
+    state = init_train_state(api, torch.Generator(device="cuda").manual_seed(0), plan)
+    step = build_train_step(api, plan, lr=TRAIN_LR, warmup_steps=2, total_steps=100)
+    batch = to_device(make_batch(cfg, TRAIN_4K, 0, batch_override=TRAIN_BATCH), "cuda",
+                      torch.bfloat16)
+    tokens = TRAIN_BATCH * TRAIN_4K.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        share = 8 * n * tokens / (times[-1] * peak_flops("bfloat16"))
+        log(f"[train] step {i}: loss {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, lr "
+            f"{m['lr'].item():.3e}, {1e3 * times[-1]:.1f} ms, {tokens / times[-1]:.0f} tokens/s, "
+            f"8·N·tokens / (time · 989 TFLOP/s) = {share:.4f}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counts = ops.launch_counts()
+    L = depth
+    expected = {"rmsnorm": TRAIN_STEPS * TRAIN_ACCUM * (2 * L + 1 + 2 * L),
+                "flash_attention": TRAIN_STEPS * TRAIN_ACCUM * 2 * L,
+                "decode_attention": 0, "moe_gmm": 0, "ssd": 0}
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_4K.seq_len} tokens ({TRAIN_ACCUM} "
+        f"micro-batches, remat full): median step after the first {1e3 * steady:.1f} ms = "
+        f"{tokens / steady:.0f} tokens/s, share {8 * n * tokens / (steady * peak_flops('bfloat16')):.4f}; "
+        f"first step {1e3 * times[0]:.1f} ms; loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("[train] launches (expected per micro-batch: 2L+1 norms forward and 2L recomputed, "
+        "L attentions forward and L recomputed): " + ", ".join(
+            f"{name} {counts[name]} (expected {c})" for name, c in expected.items()))
+    if not all(math.isfinite(g) for g in norms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not progress: losses {losses}, grad norms {norms}")
+    if counts != expected:
+        raise AssertionError(f"training: launch counts {counts} != expected {expected}")
+    # where a step's device time goes (after the counts were read; two more steps)
+    profile_breakdown(torch, f"{TRAIN_ARCH} ({depth} L) train step", 1, lambda: step(state, batch))
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_lm_resume(torch):
+    """(d) ``train_lm`` (lm-100m, batch 8 x 128) on ``sdk.Platform`` under
+    deterministic algorithms: phase 1 trains to step 20 and crashes, phase 2
+    resumes from its checkpoint to step 40; its losses must equal an uninterrupted
+    run's, and that run's last checkpoint must restore on the CPU into its state.
+    Returns the launch counts of the three runs."""
+    import os
+    import tempfile
+
+    from repro_torch import sdk
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build
+    from repro_torch.training import train_lm
+    from repro_torch.training.checkpoint import flatten_with_names, restore_checkpoint
+    from repro_torch.training.train_step import abstract_train_state
+
+    # cuBLAS needs a fixed workspace configuration for deterministic results
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    base = dict(steps=TRAIN_LM_STEPS, batch=8, seq=128, log_every=1, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as tmp:
+        straight, crash = os.path.join(tmp, "straight"), os.path.join(tmp, "crash")
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, want = train_lm.run(ckpt_dir=straight, **base)
+            app = train_lm.train_app()
+            platform = sdk.Platform(node=sdk.NodeSpec(num_slots=2, comm_slots=1))
+            platform.deploy(app)
+            first = train_lm.invoke_phase(platform, app, crash_at=TRAIN_LM_STEPS // 2,
+                                          ckpt_dir=crash, **base)
+            second = train_lm.invoke_phase(platform, app, ckpt_dir=crash, **base)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got = {int(k): v for r in (first, second) for k, v in r["losses"].items()}
+        cfg = train_lm.hundred_m_config()
+        L, runs = cfg.num_layers, 2 * TRAIN_LM_STEPS
+        expected = {"rmsnorm": runs * (2 * L + 1), "flash_attention": runs * L,
+                    "decode_attention": 0, "moe_gmm": 0, "ssd": 0}
+        same = sum(got.get(k) == v for k, v in want.items())
+        ok = (not first["completed"] and second["completed"] and got == want
+              and counts == expected)
+        log(f"[train] train_lm {cfg.name} on sdk.Platform, deterministic algorithms: crash at "
+            f"step {TRAIN_LM_STEPS // 2}, resume to {TRAIN_LM_STEPS}: {same} of {len(want)} "
+            f"losses equal the uninterrupted run's (max |diff| "
+            f"{max(abs(got.get(k, math.inf) - v) for k, v in want.items()):.3e}); loss "
+            f"{want[1]:.4f} -> {want[TRAIN_LM_STEPS]:.4f}; launches rmsnorm "
+            f"{counts['rmsnorm']}, flash {counts['flash_attention']} (expected {expected['rmsnorm']}, "
+            f"{expected['flash_attention']}); {wall:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train_lm: the resumed run differs: {got} != {want} or counts "
+                                 f"{counts} != {expected}")
+
+        api_cpu = build(cfg, device="cpu")
+        restored, step = restore_checkpoint(straight, None, abstract_train_state(api_cpu, ParallelPlan()),
+                                            device="cpu")
+        pairs = list(zip(flatten_with_names(restored), flatten_with_names(state)))
+        equal = step == TRAIN_LM_STEPS and all(
+            a[0] == b[0] and a[1].dtype == b[1].dtype and torch.equal(a[1], b[1].cpu())
+            for a, b in pairs)
+        log(f"[train] train_lm's last checkpoint (step {step}) restored on the CPU: {len(pairs)} "
+            f"leaves equal to the card's state: {equal} {'ok' if equal else 'FAIL'}")
+        if not equal:
+            raise AssertionError("train_lm: the checkpoint does not restore into the card's state")
+    return counts
+
+
+def phase_train(torch, timer: Timer):
+    """Training on the card: (a) the kernels' gradients, (b) model gradients against
+    the CPU, (c) a training run, (d) ``train_lm``'s crash and resume. Returns the
+    launch counts of (c) and (d)."""
+    t0 = time.perf_counter()
+    train_kernel_rows(torch, timer)
+    t1 = time.perf_counter()
+    train_reference(torch)
+    t2 = time.perf_counter()
+    counts = [train_run(torch)]
+    t3 = time.perf_counter()
+    counts.append(train_lm_resume(torch))
+    log(f"[train] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
+        f"{time.perf_counter() - t3:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1366,9 +1717,12 @@ def main() -> int:
         del model
         gc.collect()  # free one model before the next is built
         torch.cuda.empty_cache()
+    phase_reference(torch)
+    for run in phase_train(torch, timer):
+        for name, n in run.items():
+            counts[name] = counts.get(name, 0) + n
     for k in kernels:
         k["launches"] = counts[k["name"]]
-    phase_reference(torch)
     log(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

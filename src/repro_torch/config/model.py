@@ -79,6 +79,22 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode memory/compute is sub-quadratic in context length.
+
+        Pure-SSM archs compress context into O(1) state; hybrid archs bound
+        attention KV by the sliding window except on a few global layers.
+        """
+        return self.family == "ssm" or (
+            self.family == "hybrid" and self.sliding_window > 0
+        )
+
+    @property
+    def has_decoder(self) -> bool:
+        """Encoder-only archs have no decode step. All ours have decoders."""
+        return True
+
     def _attn_params(self) -> int:
         if self.num_heads == 0:
             return 0

@@ -1,4 +1,5 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu`` and their plain version.
+"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu``, their plain version
+and their gradient.
 
 Counterpart of ``repro.kernels.flash_attention``: GQA prefill attention with
 an online softmax, causal and sliding-window masks. ``window`` is a runtime
@@ -12,24 +13,33 @@ head_dim): bf16 at head_dim 64 or 128, the shapes of every served model,
 runs on the tensor cores (``wgmma``, any GQA group size); float32, and bf16 at
 other head dims, run on the CUDA cores (at most ``MAX_GROUP`` query heads per
 KV head).
+
+``FlashAttentionFunction`` is the kernel under autograd: its forward launches
+``flash_attention``, its backward is ``flash_attention_backward``, the
+gradient formula in torch ops (the reference has no backward kernel: XLA
+differentiates its ``chunked_attention``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.attention import chunked_attention as plain
+from repro_torch.models.attention import NEG_INF, chunked_attention as plain
 
 __all__ = ["flash_attention", "plain", "kernel_for", "launches", "MAX_GROUP", "MAX_HEAD_DIM",
-           "WGMMA_HEAD_DIMS"]
+           "WGMMA_HEAD_DIMS", "flash_attention_backward", "FlashAttentionFunction"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
 
 MAX_GROUP = 64      # query heads per KV head of the CUDA-core kernel (simt::kRows)
 MAX_HEAD_DIM = 128  # simt::kMaxDh; the tensor-core kernel takes WGMMA_HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 128)
+
+# float32 bytes of one block of P (and of each of its same-sized companions S, dP,
+# dS) in the backward: granite-8b's [2, 32, 4096, 4096] would be 4.3 GB in one piece
+BACKWARD_BLOCK_BYTES = 256 << 20
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _WGMMA = "flash_attention_bf16_wgmma"
@@ -71,3 +81,94 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                  "flash_attention")
     launches += 1
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``plain(q, k, v, causal=, window=, scale=)`` = ``o`` for the
+    output gradient ``do``: (dq, dk, dv) in q's dtype.
+
+    P is recomputed in float32 under the mask of ``chunked_attention``: key
+    position <= query position if causal, their distance < window if window > 0;
+    positions count from 0 for Sq != Sk too. Then dV = Pᵀ·dO, D = rowsum(dO ∘ O),
+    dS = P ∘ (dO·Vᵀ − D), dQ = scale·dS·K, dK = scale·dSᵀ·Q. A KV head's G query
+    heads are stacked as rows of one product, so their gradients sum into it. The
+    products run in the input dtype and sum into float32, and the values round to
+    it where the reference's differentiated ``chunked_attention`` rounds them:
+    Q·Kᵀ before the scale, P before dV, scale·dS before dQ and dK. Query rows go
+    in blocks whose float32 P holds at most ``BACKWARD_BLOCK_BYTES``; a block reads
+    only the keys its mask can allow. A query row that allows no key (one at or
+    past Sk + window - 1, which needs a window and Sq > Sk) gets no gradient and
+    passes none to K and V.
+    """
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = float(scale if scale is not None else dh**-0.5)
+    dt, dev = q.dtype, q.device
+    bh = b * hkv
+    # [B·Hkv, S, G, dh]: a block of positions is a contiguous run of (position, head) rows
+    rows_of = lambda t: t.reshape(b, sq, hkv, g, dh).transpose(1, 2).reshape(bh, sq, g, dh)
+    qh, doh = rows_of(q), rows_of(do.contiguous())
+    kh, vh = (t.transpose(1, 2).reshape(bh, sk, dh) for t in (k, v))
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(b, sq, hkv, g).transpose(1, 2)
+    delta = delta.reshape(bh, sq * g, 1)
+    dq = torch.zeros((bh, sq, g, dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
+    dv = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
+    live_rows = min(sq, sk + window - 1) if window > 0 else sq
+    rows = max(1, BACKWARD_BLOCK_BYTES // (4 * b * hq * max(sk, 1)))
+    scale_f32 = torch.full((1,), scale, dtype=torch.float32, device=dev)
+    for q0 in range(0, live_rows, rows):
+        q1 = min(live_rows, q0 + rows)
+        k0 = max(0, q0 - window + 1) if window > 0 else 0
+        k1 = min(sk, q1) if causal else sk
+        r = (q1 - q0) * g
+        qb, dob = qh[:, q0:q1].reshape(bh, r, dh), doh[:, q0:q1].reshape(bh, r, dh)
+        kb, vb = kh[:, k0:k1], vh[:, k0:k1]                    # [B·Hkv, k1 - k0, dh]
+        s = torch.bmm(qb, kb.transpose(1, 2))                  # [B·Hkv, r, k1 - k0]
+        qpos = torch.arange(q0, q1, device=dev).repeat_interleave(g)[:, None]
+        kpos = torch.arange(k0, k1, device=dev)[None, :]
+        allowed = None
+        if causal:
+            allowed = kpos <= qpos
+        if window > 0:
+            near = qpos - kpos < window
+            allowed = near if allowed is None else allowed & near
+        if allowed is not None:
+            s.masked_fill_(~allowed, NEG_INF)
+        p = torch.softmax(s * scale_f32, dim=-1)   # a [1] float32 factor: the product is float32
+        del s
+        pt = p.to(dt)
+        dv[:, k0:k1] += torch.bmm(pt.transpose(1, 2), dob)
+        del pt
+        # scale·dS = scale·P ∘ (dP − D); P is 0 where the mask refuses, so dS is too
+        ds = torch.sub(torch.bmm(dob, vb.transpose(1, 2)), delta[:, q0 * g:q1 * g])
+        ds = ds.mul_(p).mul_(scale).to(dt)
+        del p
+        dq[:, q0:q1] = torch.bmm(ds, kb).reshape(bh, q1 - q0, g, dh)
+        dk[:, k0:k1] += torch.bmm(ds.transpose(1, 2), qb)
+    dq = dq.reshape(b, hkv, sq, g, dh).transpose(1, 2).reshape(b, sq, hq, dh)
+    out = lambda t: t.to(dt).contiguous()
+    return out(dq), out(dk.reshape(b, hkv, sk, dh).transpose(1, 2)), \
+        out(dv.reshape(b, hkv, sk, dh).transpose(1, 2))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` (the kernel) forward, ``flash_attention_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        return (*flash_attention_backward(q, k, v, o, do, causal=causal, window=window,
+                                          scale=scale), None, None, None)

@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder: parameters, encoder, prefill, decode step, cache.
 
-Counterpart of ``repro.models.encdec`` (all of it but ``train_loss``). The
+Counterpart of ``repro.models.encdec``. The
 conv frontend is a stub: the inputs are precomputed frame embeddings
 [B, F, d_model], F = ``cfg.encoder_frames``. Encoder layers are LayerNorm ->
 bidirectional self-attention -> residual -> LayerNorm -> GELU MLP ->
@@ -16,6 +16,7 @@ decode kernel, the cross one over all F slots (``slot_pos`` 0, ``cur_pos``
 0). The LayerNorms and GELU MLPs are plain PyTorch: the reference has no
 kernel for them. Decoder layers are a list, ``dec_blocks/0/...``, as in the
 reference's tree. The decode step writes the self-attention cache in place.
+``train_loss`` runs the encoder and the decoder over the whole sequence.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import cache_write_decode
 from repro_torch.models.common import ParamSpec, empty_tree
-from repro_torch.models.layers import embed_tokens, gelu_mlp, layer_norm, sinusoidal_positions
+from repro_torch.models.layers import (chunked_softmax_xent, embed_tokens, gelu_mlp, layer_norm,
+                                      sinusoidal_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +132,18 @@ def _decoder_full(params, tokens, enc_out, cfg: ModelConfig):
         h = h + _mlp(_norm(h, bp["ln3"], cfg), bp["mlp"])
         caches.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
     return _norm(h, params["dec_final"], cfg), caches
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *, remat: str = "none",
+               loss_chunk: int = 0, aux_weight: float = 0.0) -> torch.Tensor:
+    """batch: frames [B,F,D], tokens [B,S], targets [B,S], optional mask [B,S] ->
+    the mean token cross-entropy over the tied head ``embed.T``. ``remat`` and
+    ``aux_weight`` are accepted and unused, as in the reference."""
+    h, _ = _decoder_full(params, batch["tokens"], encode(params, batch["frames"], cfg), cfg)
+    if loss_chunk <= 0:
+        loss_chunk = min(128 if cfg.vocab_size % 16 else 512, h.shape[1])
+    return chunked_softmax_xent(h, params["embed"].T, batch["targets"], batch.get("mask"),
+                                loss_chunk)
 
 
 # ---------------------------------------------------------------------------

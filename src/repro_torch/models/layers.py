@@ -1,4 +1,5 @@
-"""Primitive layers: norms, MLPs, rotary and sinusoidal positions, token embedding.
+"""Primitive layers: norms, MLPs, rotary and sinusoidal positions, token embedding,
+the chunked cross-entropy loss.
 
 Numerically sensitive statistics (norms, RoPE angles) run in float32
 whatever the parameter/activation dtype. Matrices keep the JAX package's
@@ -6,8 +7,11 @@ whatever the parameter/activation dtype. Matrices keep the JAX package's
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -68,3 +72,35 @@ def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, tc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk of ``mc``-weighted token losses, float32."""
+    logits = (hc @ lm_head).float()                          # [B, chunk, V]
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materialising [B, S, V] logits: the mean loss over
+    counted tokens.
+
+    Loops over sequence chunks; a chunk's logits are [B, chunk, V] float32, and
+    the sum of losses and the count are float32. ``mask`` (if given) is [B, S]
+    with 1.0 for counted tokens. Each chunk runs under ``torch.utils.checkpoint``,
+    so the backward recomputes its logits (one more head product) instead of
+    keeping every chunk's: at granite-8b's V = 49152 and S = 4096 those are
+    805 MB of float32 a sequence, and only one chunk's is alive at a time.
+    """
+    b, s, _ = h.shape
+    assert s % chunk == 0, f"seq {s} not divisible by loss chunk {chunk}"
+    ms = (torch.ones((b, s), dtype=torch.float32, device=h.device) if mask is None
+          else mask.float())
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        part = slice(c0, c0 + chunk)
+        loss_sum = loss_sum + checkpoint(_xent_chunk, h[:, part], lm_head, targets[:, part],
+                                         ms[:, part], use_reentrant=False)
+    return loss_sum / torch.clamp(ms.sum(), min=1.0)

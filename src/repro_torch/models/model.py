@@ -21,6 +21,7 @@ class ModelApi:
     cfg: ModelConfig
     device: torch.device
     param_template: Dict[str, Any]
+    train_loss: Callable   # (params, batch, **kw) -> scalar loss (``remat``, ``loss_chunk``, ...)
     prefill: Callable      # (params, tokens, prompt_lens, **extras) -> (logits, cache)
     decode_step: Callable  # (params, cache, tokens) -> (logits, cache)
     cache_spec: Callable   # (batch, cache_len) -> ParamSpec tree
@@ -51,6 +52,7 @@ def build(cfg: ModelConfig, device="cuda") -> ModelApi:
         cfg=cfg,
         device=common.resolve_device(device),
         param_template=mod.param_template(cfg),
+        train_loss=lambda p, b, **kw: mod.train_loss(p, b, cfg, **kw),
         prefill=lambda p, t, pl, **extras: mod.prefill(p, t, pl, cfg, **extras),
         decode_step=lambda p, c, t: mod.decode_step(p, c, t, cfg),
         cache_spec=lambda batch, cache_len: mod.cache_spec(cfg, batch, cache_len),

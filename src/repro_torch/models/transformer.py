@@ -1,5 +1,5 @@
 """Decoder-only LM for the dense, moe, ssm, hybrid and vlm families: parameters,
-prefill, decode step, cache.
+train loss, prefill, decode step, cache.
 
 Counterpart of ``repro.models.transformer``. A dense or MoE layer is
 rms_norm -> QKV -> RoPE -> attention -> wo -> residual ->
@@ -16,20 +16,25 @@ the hand-written kernels; the other projections are ``torch.matmul``.
 
 Layer-stacked parameters are ``[L, ...]`` tensors, sliced per layer (the
 JAX code scans over them). The decode step updates the attention caches
-and the SSM state in place.
+and the SSM state in place. Under ``remat`` the training forward wraps each
+block in ``torch.utils.checkpoint``, as the reference wraps it in
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
 from repro_torch.models.attention import cache_write_decode, promote
 from repro_torch.models.common import ParamSpec, empty_tree, tree_map
-from repro_torch.models.layers import apply_rope, embed_tokens, swiglu
+from repro_torch.models.layers import apply_rope, chunked_softmax_xent, embed_tokens, swiglu
 
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
 # (``cache_spec`` leaves carry no dtype and ``empty_cache`` defaults to bf16).
@@ -215,13 +220,38 @@ def _layer_window(cfg: ModelConfig, idx: int) -> int:
 # ---------------------------------------------------------------------------
 # Full-model forward (hidden states)
 # ---------------------------------------------------------------------------
+# the matrix products a "dots" remat keeps: those without batch dims, as the reference's
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(fn, remat: str):
+    """``fn`` run as the reference's ``remat`` policy runs a block: "none" keeps its
+    activations; "full" keeps only its inputs and recomputes the rest in the
+    backward; "dots" keeps its matrix products' outputs and recomputes the rest."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = False,
-                   prompt_lens=None, patches=None
+                   prompt_lens=None, patches=None, remat: str = "none"
                    ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
     """tokens [B,S_text] -> (final-normed h [B,S,D], per-layer cache pieces (see
     ``block_full``) or None, aux): aux is the MoE aux loss averaged over layers
     (0 for the other families). ``prompt_lens`` [B] reaches every SSM mixer. For
-    vlm, ``patches`` [B,P,D] are projected and prepended (S = P + S_text)."""
+    vlm, ``patches`` [B,P,D] are projected and prepended (S = P + S_text).
+    ``remat`` ("none", "full", "dots") is each block's policy (``remat_block``)."""
     h = embed_tokens(tokens, params["embed"])
     if cfg.family == "vlm":
         if patches is None or patches.dim() != 3 or patches.shape[1] != cfg.num_patches:
@@ -230,14 +260,40 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, collect_cache: bool = Fa
         h = torch.cat([patches.to(h.dtype) @ params["patch_proj"], h], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: Optional[List[Dict[str, Any]]] = [] if collect_cache else None
+    # every stacked leaf split once: under autograd its L layer gradients are stacked in
+    # one op, where L slices x[i] would each add a zero-filled [L, ...] gradient
+    layers = tree_map(lambda x: x.unbind(0), params["blocks"])
     for i in range(cfg.num_layers):
-        h, cache, a = block_full(h, layer_slice(params["blocks"], i), cfg,
-                                 layer_window=_layer_window(cfg, i), prompt_lens=prompt_lens)
+        block = remat_block(functools.partial(block_full, cfg=cfg, layer_window=_layer_window(cfg, i),
+                                              prompt_lens=prompt_lens), remat)
+        h, cache, a = block(h, tree_map(lambda xs: xs[i], layers))
         if a is not None:
             aux = aux + a / cfg.num_layers
         if caches is not None:
             caches.append(cache)
     return ops.rmsnorm(h, params["final_norm"], eps=cfg.norm_eps), caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Train loss
+# ---------------------------------------------------------------------------
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *, remat: str = "full",
+               loss_chunk: int = 0, aux_weight: float = 0.01) -> torch.Tensor:
+    """batch: tokens [B,S], targets [B,S], optional mask [B,S], patches (vlm) ->
+    the mean token cross-entropy plus ``aux_weight`` x the MoE aux loss.
+
+    A vlm's hidden states start with its P patch positions, which carry no
+    target: the loss reads the text positions only. ``loss_chunk`` <= 0 picks
+    128 if the vocabulary is not a multiple of 16, else 512, capped at S."""
+    patches = batch.get("patches")
+    h, _, aux = forward_hidden(params, batch["tokens"], cfg, remat=remat, patches=patches)
+    if cfg.family == "vlm" and patches.shape[1]:
+        h = h[:, patches.shape[1]:]
+    if loss_chunk <= 0:
+        loss_chunk = min(128 if cfg.vocab_size % 16 else 512, h.shape[1])
+    loss = chunked_softmax_xent(h, lm_head_weight(params, cfg), batch["targets"],
+                                batch.get("mask"), loss_chunk)
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------
