@@ -66,6 +66,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``sdk.Platform`` (lm-100m), crashed at step 20 and resumed, under
      deterministic algorithms: its losses equal an uninterrupted run's, and
      that run's last checkpoint restores on the CPU into its state.
+  7. launch: (a) ``python -m repro_torch.launch.serve``'s ``run`` with the CLI's
+     defaults (16 requests, 8 slots, cache 64, 12 new tokens) on granite-8b and
+     whisper-base (1500 frames a request) at full width, its tokens equal to the
+     batcher's run directly, exact launch counts; (b) ``launch.train``'s ``run``
+     on whisper-base at full width (seq 448, batch 8), 30 steps straight, then 20
+     and a restart to 30 from the checkpoint, under deterministic algorithms: the
+     restarted losses equal the straight run's bitwise, exact flash counts; (c)
+     ``apps.inference_service`` for granite-8b priced on ``H100_SXM`` beside phase
+     5's measured decode steps, none of which may beat its roofline term.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -133,6 +142,16 @@ GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 TRAIN_ARCH, TRAIN_BUDGET_BYTES, TRAIN_BYTES_PER_PARAM = "granite-8b", 60e9, 16
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 4, 10, 1e-3
 TRAIN_LM_STEPS = 40
+# phase 7 (launch): the CLIs' run() at full width; whisper-base is the one trainable
+# family whose full depth and width train on one card (70.7 M parameters, ~1.1 GB of
+# state); the encdec family has no remat, so "--remat full" changes nothing there.
+# --lr 1e-2 in the 100-step warmup gives AdamW steps of 1e-4..3e-3, above a bf16
+# weight's ulp (1.2e-4 at 0.02): at the default 3e-4 most bf16 weights would not
+# move, and a restart from the wrong state could still give the same losses
+LAUNCH_SERVE_ARCHS = ("granite-8b", "whisper-base")
+LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS = "whisper-base", (20, 30)
+LAUNCH_TRAIN_FLAGS = ("--seq", "448", "--batch", "8", "--remat", "full", "--ckpt-every", "10",
+                      "--lr", "1e-2")
 
 
 def log(msg: str) -> None:
@@ -1327,7 +1346,8 @@ def platform_sdk(torch, cfg, api, params):
 
 def platform_calibration(torch, api, params):
     """``trace_capture`` at full width: CUDA-event step times, the affine fit,
-    the calibrated ``BatchStepModel`` and its residuals (printed, not bounded)."""
+    the calibrated ``BatchStepModel`` and its residuals (printed, not bounded).
+    Returns the step timings (phase 7(c) holds them against the modeled roofline)."""
     from repro_torch.serving import trace_capture as tc
 
     timings = tc.capture_step_timings(api, params, batches=CALIBRATION_BATCHES,
@@ -1340,13 +1360,14 @@ def platform_calibration(torch, api, params):
     res = tc.calibration_residuals(timings, model)
     log(f"[platform] affine fit: fixed {fixed * 1e3:.4f} ms + {per_seq * 1e3:.4f} ms per sequence; "
         f"{model}; residuals " + ", ".join(f"batch {b}: {r:+.4f}" for b, r in res))
+    return timings
 
 
 def phase_platform(torch, cfg, api, params):
     """Dandelion's worker node and SDK on the card, after ``cfg``'s serving run on
     its model: Table 1, billing of queued device work, serve_lm through a
-    WorkerNode and through ``sdk.Platform`` (the launch counts of these runs are
-    returned), and the step calibration."""
+    WorkerNode and through ``sdk.Platform``, and the step calibration. Returns
+    the launch counts of the serving runs and the calibration's step timings."""
     t0 = time.perf_counter()
     platform_table1(torch)
     platform_billing(torch)
@@ -1354,9 +1375,9 @@ def phase_platform(torch, cfg, api, params):
     t1 = time.perf_counter()
     counts += platform_sdk(torch, cfg, api, params)
     log(f"[platform] platform_sdk {time.perf_counter() - t1:.1f} s")
-    platform_calibration(torch, api, params)
+    timings = platform_calibration(torch, api, params)
     log(f"[platform] {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, timings
 
 
 # ---------------------------------------------------------------------------
@@ -1683,6 +1704,170 @@ def phase_train(torch, timer: Timer):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the launch CLIs and the inference service on the card
+# ---------------------------------------------------------------------------
+def launch_serve(torch, arch: str, card: str):
+    """(a) ``python -m repro_torch.launch.serve --arch <arch>``'s ``run`` at full width
+    with the CLI's defaults, on weights from its seed: its tokens must equal the
+    port's ``ContinuousBatcher`` run directly on the same weights, prompts and
+    extras, and its launches ``expected_launches``. Returns the CLI run's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+
+    _no_tf32(torch)
+    args = serve.parser().parse_args(["--arch", arch, "--device", "cuda"])
+    cfg = get_config(arch)
+    api = build(cfg, device="cuda")
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    served = serve.run(args, params=params)
+    counts = ops.launch_counts()
+
+    extra = serve.request_extras(cfg, "cuda")
+    direct = ContinuousBatcher(api, params, num_slots=args.slots,
+                               cache_len=args.cache_len + cfg.num_patches,
+                               extras_fn=lambda rid: extra)
+    for rid, prompt in enumerate(serve.prompts(cfg, args)):
+        direct.submit(Request(rid, prompt, max_new_tokens=args.max_new))
+    want = direct.run_to_completion()
+    expected = expected_launches(cfg, args.requests, direct.steps)
+    tokens = sum(len(v) for v in served.results.values())
+    same = sum(served.results.get(rid) == toks for rid, toks in want.items())
+    extras = {k: tuple(v.shape) for k, v in extra.items()}
+    ok = same == len(want) == args.requests and counts == expected
+    log(f"[launch] serve {cfg.name}: {args.requests} requests, {args.slots} slots, cache "
+        f"{args.cache_len}, {args.max_new} new tokens, extras {extras}: {same} of {len(want)} "
+        f"requests' tokens equal the batcher's, {direct.steps} decode steps; launches " + ", ".join(
+            f"{name} {counts[name]} (expected {n})" for name, n in expected.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    log(f"[launch] serve {cfg.name}: served {len(served.results)} requests, {tokens} tokens in "
+        f"{served.seconds:.2f}s ({tokens / served.seconds:.1f} tok/s) on {card}")
+    if not ok:
+        raise AssertionError(f"launch.serve {arch}: tokens {served.results} != {want} or counts "
+                             f"{counts} != {expected}")
+    del api, params, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def launch_train(torch, card: str):
+    """(b) ``python -m repro_torch.launch.train``'s ``run`` on whisper-base at full
+    width (``LAUNCH_TRAIN_FLAGS``) under deterministic algorithms: an uninterrupted
+    ``LAUNCH_TRAIN_STEPS[1]``-step run, then a run to ``LAUNCH_TRAIN_STEPS[0]`` and a
+    restart to ``LAUNCH_TRAIN_STEPS[1]`` from its checkpoint; the restarted run's
+    losses and grad norms must equal the uninterrupted run's bitwise. The step
+    times are ``run``'s own. Returns the launch counts."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    crash_at, steps = LAUNCH_TRAIN_STEPS
+    cfg = get_config(LAUNCH_TRAIN_ARCH)
+    with tempfile.TemporaryDirectory(prefix="launch_train_") as tmp:
+        args = lambda n, sub: train.parser().parse_args(
+            ["--arch", LAUNCH_TRAIN_ARCH, *LAUNCH_TRAIN_FLAGS, "--steps", str(n),
+             "--ckpt-dir", os.path.join(tmp, sub), "--device", "cuda"])
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            walls = []
+            for n, sub in ((steps, "straight"), (crash_at, "crash"), (steps, "crash")):
+                t0 = time.perf_counter()
+                walls.append((train.run(args(n, sub)), time.perf_counter() - t0))
+            counts = ops.launch_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    (straight_run, wall), (first_run, _), (second_run, resume_wall) = walls
+    straight, first, second = straight_run.losses, first_run.losses, second_run.losses
+    step_s = [straight_run.step_s[k] for k in sorted(straight_run.step_s)]
+    tokens = int(LAUNCH_TRAIN_FLAGS[LAUNCH_TRAIN_FLAGS.index("--batch") + 1]) * int(
+        LAUNCH_TRAIN_FLAGS[LAUNCH_TRAIN_FLAGS.index("--seq") + 1])
+    steady = sorted(step_s[1:steps])[(steps - 1) // 2]   # the straight run's median after step 1
+    runs = steps + crash_at + (steps - crash_at)
+    per_step = cfg.encoder_layers + 2 * cfg.num_layers   # no remat in the encdec family
+    expected = {"rmsnorm": 0, "flash_attention": runs * per_step, "decode_attention": 0,
+                "moe_gmm": 0, "ssd": 0}
+    resumed = {k: v for k, v in straight.items() if k > crash_at}
+    resumed_norms = {k: v for k, v in straight_run.grad_norms.items() if k > crash_at}
+    ok = (sorted(first) == list(range(1, crash_at + 1)) and second == resumed
+          and second_run.grad_norms == resumed_norms
+          and all(first[k] == straight[k] for k in first) and counts == expected
+          and all(math.isfinite(v) for v in straight.values()))
+    log(f"[launch] train {cfg.name} ({' '.join(LAUNCH_TRAIN_FLAGS)}), deterministic algorithms: "
+        f"{steps} steps straight, {crash_at} then a restart to {steps}: "
+        f"{sum(second.get(k) == v for k, v in resumed.items())} of {len(resumed)} resumed losses "
+        f"equal the uninterrupted run's (and grad norms: "
+        f"{second_run.grad_norms == resumed_norms}); loss {straight[1]:.4f} -> "
+        f"{straight[steps]:.4f}, grad norm {straight_run.grad_norms[1]:.4f} -> "
+        f"{straight_run.grad_norms[steps]:.4f}; "
+        f"median step after the first {1e3 * steady:.1f} ms ({tokens / steady:.0f} tokens/s), "
+        f"first {1e3 * step_s[0]:.1f} ms; walls {wall:.1f} s straight, {resume_wall:.1f} s the "
+        f"restart (init or restore and checkpoints included); launches "
+        f"flash {counts['flash_attention']} (expected {expected['flash_attention']}: "
+        f"{per_step} a step), rmsnorm {counts['rmsnorm']} {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        raise AssertionError(f"launch.train: the restarted run differs ({second} != {resumed}) or "
+                             f"counts {counts} != {expected}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def launch_service(timings):
+    """(c) ``apps.inference_service`` for granite-8b priced on ``H100_SXM``: the
+    modeled prefill step, decode ``step_s(b)`` and weight cold start, beside phase
+    5's CUDA-event decode steps; a measured step faster than its roofline term
+    (``step_s(b)`` less ``overhead_s``) would mean wrong bytes or constants."""
+    from repro_torch.apps.inference_service import lm_spec_from_config, register_inference_service
+    from repro_torch.configs import get_config
+    from repro_torch.core import FunctionRegistry
+
+    spec = lm_spec_from_config(get_config(PLATFORM_ARCH))
+    svc = register_inference_service(FunctionRegistry(), spec, hw=card_spec())
+    m, wc = svc.batch_model, svc.weight_cold
+    log(f"[launch] service {spec.name} on {card_spec().name}: {spec.param_bytes / 1e9:.3f} GB of "
+        f"weights, {spec.kv_bytes_per_token} KV bytes a token; modeled prefill step "
+        f"({spec.prompt_len_hint} tokens) {svc.prefill_step_s * 1e3:.4f} ms; weight cold start "
+        f"{wc.total_s:.4f} s (load {wc.load_s:.4f} s + compile {wc.compile_s:.4f} s, "
+        f"{wc.hlo_ops} ops)")
+    bad = []
+    for t in timings:
+        roof = m.step_s(t.batch) - m.overhead_s
+        log(f"[launch] service decode batch {t.batch}: modeled step_s {m.step_s(t.batch) * 1e3:.4f} "
+            f"ms (roofline {roof * 1e3:.4f} + overhead {m.overhead_s * 1e3:.4f}); measured (phase 5, "
+            f"CUDA events) {t.decode_s * 1e3:.4f} ms = {t.decode_s / roof:.3f}x the roofline")
+        if t.decode_s < roof:
+            bad.append(t.batch)
+    if bad:
+        raise AssertionError(f"measured decode steps at batches {bad} beat their H100_SXM roofline: "
+                             "the LMSpec's bytes or the card's constants are wrong")
+
+
+def phase_launch(torch, card: str, timings):
+    """Phase 7: ``launch.serve`` (granite-8b and whisper-base), ``launch.train``
+    (whisper-base, resumed bitwise) and the inference service on the card's
+    constants. Returns the launch counts of the serve and train runs."""
+    t0 = time.perf_counter()
+    counts = [launch_serve(torch, arch, card) for arch in LAUNCH_SERVE_ARCHS]
+    t1 = time.perf_counter()
+    counts.append(launch_train(torch, card))
+    t2 = time.perf_counter()
+    launch_service(timings)
+    log(f"[launch] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1710,7 +1895,8 @@ def main() -> int:
         arch_counts, model = phase_serve(torch, arch, timer)
         runs = [arch_counts]
         if arch == PLATFORM_ARCH:  # the platform phase serves the same model and weights
-            runs += phase_platform(torch, *model)
+            platform_counts, timings = phase_platform(torch, *model)
+            runs += platform_counts
         for run in runs:
             for name, n in run.items():
                 counts[name] = counts.get(name, 0) + n
@@ -1718,7 +1904,7 @@ def main() -> int:
         gc.collect()  # free one model before the next is built
         torch.cuda.empty_cache()
     phase_reference(torch)
-    for run in phase_train(torch, timer):
+    for run in phase_train(torch, timer) + phase_launch(torch, card, timings):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     for k in kernels:

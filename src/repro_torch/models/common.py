@@ -129,6 +129,14 @@ def init_params(template, generator: torch.Generator, device="cuda",
     return tree_map_with_path(make, template)
 
 
+def abstract_params(template, default_dtype: str = "bfloat16"):
+    """``template`` as ``meta`` tensors of its shapes and dtypes (a leaf whose spec
+    names no dtype takes ``default_dtype``): the counterpart of the reference's
+    ``jax.ShapeDtypeStruct`` tree, allocating nothing."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype or default_dtype),
+                                          device="meta"), template)
+
+
 def empty_tree(spec, device="cuda", dtype: str = "bfloat16"):
     """A cache from its ParamSpec tree: zeros, int32 leaves of rank >= 3 (``slot_pos``)
     -1 (empty), other int32 leaves (``pos``) 0; leaves whose spec names no dtype

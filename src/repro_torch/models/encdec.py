@@ -28,8 +28,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import cache_write_decode
 from repro_torch.models.common import ParamSpec, empty_tree
-from repro_torch.models.layers import (chunked_softmax_xent, embed_tokens, gelu_mlp, layer_norm,
-                                      sinusoidal_positions)
+from repro_torch.models.layers import (chunked_softmax_xent, default_loss_chunk, embed_tokens,
+                                      gelu_mlp, layer_norm, sinusoidal_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +138,11 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *, rema
                loss_chunk: int = 0, aux_weight: float = 0.0) -> torch.Tensor:
     """batch: frames [B,F,D], tokens [B,S], targets [B,S], optional mask [B,S] ->
     the mean token cross-entropy over the tied head ``embed.T``. ``remat`` and
-    ``aux_weight`` are accepted and unused, as in the reference."""
+    ``aux_weight`` are accepted and unused, as in the reference; ``loss_chunk``
+    <= 0 picks ``layers.default_loss_chunk``."""
     h, _ = _decoder_full(params, batch["tokens"], encode(params, batch["frames"], cfg), cfg)
     if loss_chunk <= 0:
-        loss_chunk = min(128 if cfg.vocab_size % 16 else 512, h.shape[1])
+        loss_chunk = default_loss_chunk(cfg.vocab_size, h.shape[1])
     return chunked_softmax_xent(h, params["embed"].T, batch["targets"], batch.get("mask"),
                                 loss_chunk)
 

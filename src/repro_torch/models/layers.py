@@ -7,6 +7,8 @@ whatever the parameter/activation dtype. Matrices keep the JAX package's
 """
 from __future__ import annotations
 
+import math
+
 from typing import Optional
 
 import torch
@@ -80,6 +82,24 @@ def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, tc: torch.Tensor,
     logits = (hc @ lm_head).float()                          # [B, chunk, V]
     gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
+
+
+MIN_LOSS_CHUNK = 16
+
+
+def default_loss_chunk(vocab_size: int, seq: int) -> int:
+    """The loss chunk ``train_loss`` takes when its caller names none: the
+    reference's (128 if the vocabulary is not a multiple of 16, else 512,
+    capped at S) where that divides S, else the largest chunk dividing both.
+    The reference's own rule refuses such an S (whisper-base's 448 text
+    positions against 128; ROADMAP C); every S it accepts keeps its chunk.
+    A chunk below ``MIN_LOSS_CHUNK`` (an odd S gives 1: S checkpointed head
+    products of one position each) is refused."""
+    chunk = math.gcd(seq, min(128 if vocab_size % 16 else 512, seq))
+    if chunk < min(MIN_LOSS_CHUNK, seq):
+        raise ValueError(f"seq {seq} leaves a loss chunk of {chunk} (vocabulary {vocab_size}); "
+                         f"pass a seq with a factor of {MIN_LOSS_CHUNK} or a loss_chunk dividing it")
+    return chunk
 
 
 def chunked_softmax_xent(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,

@@ -27,6 +27,16 @@ class ModelApi:
     cache_spec: Callable   # (batch, cache_len) -> ParamSpec tree
     empty_cache: Callable  # (batch, cache_len, device) -> cache tree
 
+    def abstract_params(self):
+        """The parameters as ``meta`` tensors: shapes and dtypes, no storage."""
+        return common.abstract_params(self.param_template, self.cfg.dtype)
+
+    def abstract_cache(self, batch: int, cache_len: int):
+        """The cache spec's shapes and dtypes as ``meta`` tensors, as the
+        reference's ``abstract_cache`` gives them (a leaf whose spec names no
+        dtype takes the model's)."""
+        return common.abstract_params(self.cache_spec(batch, cache_len), self.cfg.dtype)
+
     def init_params(self, generator: torch.Generator):
         return common.init_params(self.param_template, generator, self.device, self.cfg.dtype)
 

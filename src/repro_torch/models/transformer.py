@@ -34,7 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
 from repro_torch.models.attention import cache_write_decode, promote
 from repro_torch.models.common import ParamSpec, empty_tree, tree_map
-from repro_torch.models.layers import apply_rope, chunked_softmax_xent, embed_tokens, swiglu
+from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, default_loss_chunk,
+                                      embed_tokens, swiglu)
 
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
 # (``cache_spec`` leaves carry no dtype and ``empty_cache`` defaults to bf16).
@@ -284,13 +285,14 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *, rema
 
     A vlm's hidden states start with its P patch positions, which carry no
     target: the loss reads the text positions only. ``loss_chunk`` <= 0 picks
-    128 if the vocabulary is not a multiple of 16, else 512, capped at S."""
+    ``layers.default_loss_chunk``: the reference's 128 if the vocabulary is not a
+    multiple of 16, else 512, capped at S, where that divides S."""
     patches = batch.get("patches")
     h, _, aux = forward_hidden(params, batch["tokens"], cfg, remat=remat, patches=patches)
     if cfg.family == "vlm" and patches.shape[1]:
         h = h[:, patches.shape[1]:]
     if loss_chunk <= 0:
-        loss_chunk = min(128 if cfg.vocab_size % 16 else 512, h.shape[1])
+        loss_chunk = default_loss_chunk(cfg.vocab_size, h.shape[1])
     loss = chunked_softmax_xent(h, lm_head_weight(params, cfg), batch["targets"],
                                 batch.get("mask"), loss_chunk)
     return loss + aux_weight * aux

@@ -5,8 +5,10 @@ a float32 scale, and an error-feedback residual that carries each step's
 quantisation error into the next step's gradient, so the time-averaged
 gradient is unbiased (Karimireddy et al., 2019). ``torch.round`` rounds
 half to even, as ``jnp.round`` does, so both packages give the same int8
-bytes. The reference's ``compress_psum`` (the int8 all-reduce over a mesh
-axis) waits for the port's mesh.
+bytes. The port has its mesh (``launch.mesh.make_mesh``) and its placement
+rules (``sharding.rules``) on a world of one; the reference's
+``compress_psum``, the int8 all-reduce over a mesh axis, waits for the
+sharded step over a process group larger than one (ROADMAP A8).
 """
 from __future__ import annotations
 

@@ -14,8 +14,12 @@ Counterpart of ``repro.training.train_step`` on one device.
   * then ``adamw_update``, which writes the parameters and moments in place.
 
 The metrics are 0-dim tensors: ``loss`` (float32), ``grad_norm``, ``lr``.
-The reference's ``make_train_state_specs`` and ``jit_train_step`` place the
-state on a mesh; they wait for the port's mesh.
+``make_train_state_specs`` gives the state's abstract tree and its
+placements on a ``DeviceMesh`` (``sharding.rules``), as the reference's gives
+its shardings. ``launch.train`` runs the step on a world of one, which
+needs no placements. The reference's ``jit_train_step``, the step sharded
+over a mesh larger than one device, waits for ROADMAP A8's sharded step,
+which consumes them.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.config.parallel import ParallelPlan
-from repro_torch.models.common import torch_dtype, tree_items, tree_map, tree_map_with_path
+from repro_torch.models.common import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.model import ModelApi
 from repro_torch.training import compress as compress_lib
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
@@ -46,11 +50,27 @@ def abstract_train_state(api: ModelApi, plan: ParallelPlan) -> TrainState:
     """The state's structure, shapes and dtypes as ``meta`` tensors: a restore's
     template that allocates nothing."""
     meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
-    params = tree_map(lambda s: meta(s.shape, torch_dtype(s.dtype or api.cfg.dtype)),
-                      api.param_template)
+    params = api.abstract_params()
     f32 = lambda: tree_map(lambda p: meta(p.shape, torch.float32), params)
     residual = compress_lib.CompressedState(residual=f32()) if plan.compress_grads else None
     return TrainState(params, AdamWState(meta((), torch.int32), f32(), f32()), residual)
+
+
+def make_train_state_specs(api: ModelApi, plan: ParallelPlan, mesh) -> Tuple[TrainState, TrainState]:
+    """(abstract_state, state_placements): the state on ``meta`` tensors, and a
+    ``TrainState`` of ``sharding.rules.MeshSharding`` leaves on ``mesh``. The
+    moments and the residual inherit the parameters' placements; ``step`` is
+    replicated."""
+    from repro_torch.sharding.rules import param_shardings, replicated
+
+    abstract = abstract_train_state(api, plan)
+    pshard = param_shardings(api.param_template, mesh, plan, kind="train")
+    placements = TrainState(
+        params=pshard,
+        opt=AdamWState(step=replicated(mesh), mu=pshard, nu=pshard),
+        residual=compress_lib.CompressedState(residual=pshard) if plan.compress_grads else None,
+    )
+    return abstract, placements
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int):
