@@ -10,7 +10,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the main paths' shapes (granite-8b's, olmoe-1b-7b's, mamba2-130m's,
      hymba-1.5b's, glm4-9b's G = 16, qwen2.5-32b's G = 5 at 40 query heads,
-     deepseek's and internvl2's G = 8 at 64, and whisper-base's non-causal
+     deepseek's and internvl2's G = 8 at 64, qwen3-moe-235b-a22b's G = 16 at 64
+     query heads over 4 KV heads and its 128-expert ``moe_gmm`` (D 4096, F 1536,
+     top-8), and whisper-base's non-causal
      encoder and cross-attention, causal decoder self-attention, partly filled
      self cache and all-valid cross cache), in bf16 and f32, with kernel, plain and library device
      times (``Timer``) and the card's bound for the same work;
@@ -18,7 +20,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (dense; deepseek cut to 44 of 95 layers), olmoe-1b-7b (MoE), mamba2-130m
      (SSM), hymba-1.5b (hybrid, cache 2048 so that its sliding layers hold a
      ring of 1024), internvl2-76b (vlm, cut to 35 of 80 layers, 256 patches a
-     request) and whisper-base (encdec, cache 448, 1500 frames a request) at
+     request), qwen3-moe-235b-a22b (MoE, 128 experts, cut to 12 of 94 layers)
+     and whisper-base (encdec, cache 448, 1500 frames a request) at
      full width in bf16, random weights from a seeded generator, 8 requests
      through ``ContinuousBatcher`` (4 slots); launch counters, set to 0 just
      before each run and read just after, must equal the expected counts;
@@ -28,7 +31,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      2 layers (whisper-base whole): a prefill plus 4 decode steps, on the
      card through the kernels and on the CPU through the plain versions
      (granite, glm4, qwen2.5 with non-zero QKV biases, olmoe, mamba2,
-     internvl2 with its patches and whisper with its frames on a 128-token
+     internvl2 with its patches, qwen3-moe and whisper with its frames on a 128-token
      prompt, hymba on a 1300-token prompt in a 2048 cache with layer 1
      sliding; the logits, for olmoe also the share of tokens routed to
      another set of experts, for mamba2 and hymba also the final SSM state);
@@ -75,6 +78,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      restarted losses equal the straight run's bitwise, exact flash counts; (c)
      ``apps.inference_service`` for granite-8b priced on ``H100_SXM`` beside phase
      5's measured decode steps, none of which may beat its roofline term.
+     ``launch.train`` runs on a (1, 1) mesh through ``jit_train_step``.
+  8. sharded, on a (1, 1) NCCL mesh: (a) ``jit_serve_steps`` on granite-8b
+     (bf16, full depth and width), a prefill of 4 prompts and 16 decode steps,
+     against ``build_serve_steps`` on the same weights: logits and tokens
+     bitwise equal, exact launch counts, each decode step timed with CUDA
+     events through DTensor and plain; (b) ``jit_train_step`` with ZeRO-3 on
+     granite-8b at full width cut to 4 of 36 layers (seq 1024 x batch 4,
+     remat "full", 3 steps, deterministic algorithms) against
+     ``build_train_step``: losses, grad norms and every leaf bitwise equal,
+     exact counts; (c) ``compress_psum`` over the NCCL group on (b)'s
+     gradient leaves, equal to ``tree_compress_with_feedback`` bitwise.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -97,17 +111,18 @@ ROOT = Path(__file__).resolve().parent
 TOL = {"bfloat16": 3e-2, "float32": 2e-3}    # tests/test_kernels.py::_tol
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_NEW = 4, 1024, 8, 32
 SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "glm4-9b", "qwen2.5-32b",
-               "deepseek-67b", "internvl2-76b", "whisper-base")
-# deepseek-67b (134.9 GB of bf16 weights, the reference's num_params) and internvl2-76b
-# (141.2 GB) do not fit the card's 80 GB at full depth: each is served at the deepest
-# cut whose weights are no larger than those of qwen2.5-32b at full depth (65.5 GB),
-# which the card serves with its cache and activations (``serve_depth``: 44 and 35
-# layers); widths are never cut
-DEPTH_CUT_ARCHS, WEIGHT_BUDGET_ARCH = ("deepseek-67b", "internvl2-76b"), "qwen2.5-32b"
+               "deepseek-67b", "internvl2-76b", "qwen3-moe-235b-a22b", "whisper-base")
+# deepseek-67b (134.9 GB of bf16 weights, the reference's num_params), internvl2-76b
+# (141.2 GB) and qwen3-moe-235b-a22b (470.2 GB) do not fit the card's 80 GB at full
+# depth: each is served at the deepest cut whose weights are no larger than those of
+# qwen2.5-32b at full depth (65.5 GB), which the card serves with its cache and
+# activations (``serve_depth``: 44, 35 and 12 layers); widths are never cut
+DEPTH_CUT_ARCHS = ("deepseek-67b", "internvl2-76b", "qwen3-moe-235b-a22b")
+WEIGHT_BUDGET_ARCH = "qwen2.5-32b"
 WHISPER_CACHE = 448   # Whisper's text context
 # phase 4: every model but deepseek-67b (the same dense code as glm4 and qwen2.5)
 REFERENCE_ARCHS = ("granite-8b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "glm4-9b",
-                   "qwen2.5-32b", "internvl2-76b", "whisper-base")
+                   "qwen2.5-32b", "internvl2-76b", "qwen3-moe-235b-a22b", "whisper-base")
 # hymba serves a 2048 cache, so its sliding layers (window 1024) hold a ring; its
 # prompts straddle the window: the prefill's window mask bites over 1024, the
 # trailing-window rule under it, and the decode ring wraps
@@ -152,6 +167,12 @@ LAUNCH_SERVE_ARCHS = ("granite-8b", "whisper-base")
 LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS = "whisper-base", (20, 30)
 LAUNCH_TRAIN_FLAGS = ("--seq", "448", "--batch", "8", "--remat", "full", "--ckpt-every", "10",
                       "--lr", "1e-2")
+# phase 8 (sharded): the sharded steps on a (1, 1) NCCL mesh against the plain steps on the
+# same weights, bitwise. (a) granite-8b whole, a prefill of 4 prompts in a 1024 cache, then
+# 16 decode steps; (b) ZeRO-3 training of granite-8b at full width cut to 4 of 36 layers,
+# seq 1024 x batch 4, 3 steps, remat "full", under deterministic algorithms
+SHARDED_ARCH, SHARDED_PROMPTS, SHARDED_DECODE = "granite-8b", 4, 16
+SHARDED_TRAIN_LAYERS, SHARDED_TRAIN_SEQ, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 1024, 4, 3
 
 
 def log(msg: str) -> None:
@@ -455,6 +476,13 @@ def phase_kernels(torch, timer: Timer):
                 (64, 160, 1024, 2048, "prefill down", None),
                 (64, 160, 2048, 1024, "prefill gate/up routed, expert 0 empty",
                  routed(SERVE_CACHE, 64, 160, empty=(0,))),
+                # qwen3-moe-235b-a22b: 128 experts, top-8 of d_ff 1536 at d_model 4096;
+                # capacity 8 at decode, 80 at a 1024-token prefill
+                (128, 8, 4096, 1536, "qwen3-moe decode gate/up routed",
+                 routed(SERVE_SLOTS, 128, 8)),
+                (128, 80, 4096, 1536, "qwen3-moe prefill gate/up routed",
+                 routed(SERVE_CACHE, 128, 80)),
+                (128, 80, 1536, 4096, "qwen3-moe prefill down", None),
                 (8, 40, 100, 72, "ragged", None),
                 (8, 40, 100, 72, "ragged, 2 groups", live_ragged),
                 # the other row tiles of tile_plan: two n8 products, and 300 rows in two tiles
@@ -549,7 +577,8 @@ def phase_kernels(torch, timer: Timer):
                                                   ("glm4 G=16", 1024, 1024, 32, 2, 128, True),
                                                   ("qwen2.5 G=5", 1024, 1024, 40, 8, 128, True),
                                                   ("deepseek/internvl2 G=8", 1024, 1024, 64, 8, 128,
-                                                   True)):
+                                                   True),
+                                                  ("qwen3-moe G=16", 1024, 1024, 64, 4, 128, True)):
             def make(sq=sq, sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, dt=dt):
                 q, k, v = rnd((1, sq, hq, dh), dt), rnd((1, sk, hkv, dh), dt), rnd((1, sk, hkv, dh), dt)
                 lib = lambda: F.scaled_dot_product_attention(
@@ -578,6 +607,7 @@ def phase_kernels(torch, timer: Timer):
                 ("glm4 G=16", 1024, 32, 2, 128, part_slot, part_cur),
                 ("qwen2.5 G=5", 1024, 40, 8, 128, part_slot, part_cur),
                 ("deepseek/internvl2 G=8", 1024, 64, 8, 128, part_slot, part_cur),
+                ("qwen3-moe G=16", 1024, 64, 4, 128, part_slot, part_cur),
                 ("whisper self", WHISPER_CACHE, 8, 8, 64, self_slot, self_cur),
                 ("whisper cross", 1500, 8, 8, 64, cross_slot, cross_cur)):
             valid = (slot_ >= 0) & (slot_ <= cur_[:, None])
@@ -1868,6 +1898,232 @@ def phase_launch(torch, card: str, timings):
     return counts
 
 
+def _event_ms(torch, fn):
+    """(fn's result, CUDA-event ms from before its first launch to after its last, host
+    ms to the synchronise after it): the events see the host's gaps between launches."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def sharded_serve(torch, mesh, card: str):
+    """(a) ``jit_serve_steps`` on granite-8b (bf16, full depth and width) against
+    ``build_serve_steps`` on the same weights: a prefill of ``SHARDED_PROMPTS`` prompts,
+    then ``SHARDED_DECODE`` decode steps, each decoding its own argmax; the logits and
+    tokens must be equal bitwise and the sharded run's launch counts exact. Each decode
+    step is timed with CUDA events, through DTensor and plain. Returns the counts."""
+    import contextlib
+
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import build_serve_steps, jit_serve_steps
+    from repro_torch.sharding.rules import gather, place_tree
+
+    cfg = get_config(SHARDED_ARCH)
+    api = build(cfg, device="cuda")
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(8)
+    lens = rng.integers(64, 513, size=SHARDED_PROMPTS)
+    tokens = torch.zeros((SHARDED_PROMPTS, SERVE_CACHE), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+    tokens, plens = tokens.cuda(), torch.tensor(lens, dtype=torch.int32, device="cuda")
+    plan = ParallelPlan().restrict_to(mesh.mesh_dim_names)
+    plain = build_serve_steps(api)
+    prefill, decode, (psh, _, _) = jit_serve_steps(api, plan, mesh, SHARDED_PROMPTS, SERVE_CACHE)
+    dparams = place_tree(params, psh)
+
+    def run(pf, dc, p, mode, steps):
+        """(logits of the prefill and each step, tokens, event ms and host ms a step)."""
+        with mode():
+            logits, cache = pf(p, tokens, plens)
+            outs, toks, ev, host = [gather(logits)], [], [], []
+            tok = torch.argmax(outs[0], dim=-1).to(torch.int32)
+            for _ in range(steps):
+                (logits, tok, cache), e_ms, h_ms = _event_ms(torch, lambda: dc(p, cache, tok))
+                tok = gather(tok)
+                outs.append(gather(logits))
+                toks.append(tok)
+                ev.append(e_ms)
+                host.append(h_ms)
+        return outs, toks, ev, host
+
+    sharded = lambda steps: run(prefill, decode, dparams, contextlib.nullcontext, steps)
+    unsharded = lambda steps: run(plain.prefill, plain.decode, params, torch.inference_mode, steps)
+    unsharded(2)          # warm-up: cuBLAS handles, DTensor's sharding propagation cache
+    sharded(2)
+    want, want_toks, p_ev, p_host = unsharded(SHARDED_DECODE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got, got_toks, s_ev, s_host = sharded(SHARDED_DECODE)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    expected = {"rmsnorm": (2 * L + 1) * (1 + SHARDED_DECODE), "flash_attention": L,
+                "decode_attention": L * SHARDED_DECODE, "moe_gmm": 0, "ssd": 0}
+    same_logits = sum(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    same_toks = sum(bool(torch.equal(g, w)) for g, w in zip(got_toks, want_toks))
+    ok = same_logits == len(want) and same_toks == len(want_toks) and counts == expected
+    log(f"[sharded] (a) serve {cfg.name} on a (1, 1) NCCL mesh, {SHARDED_PROMPTS} prompts of "
+        f"{list(map(int, lens))} tokens in a {SERVE_CACHE} cache, {SHARDED_DECODE} decode steps: "
+        f"logits bitwise equal {same_logits} of {len(want)}, tokens {same_toks} of "
+        f"{len(want_toks)}; launches " + ", ".join(f"{k} {counts[k]} (expected {n})"
+                                                   for k, n in expected.items()))
+    log(f"[sharded] (a) decode step, median of {SHARDED_DECODE} (CUDA events / host to the "
+        f"synchronise): DTensor {_median(s_ev):.2f} / {_median(s_host):.2f} ms, plain "
+        f"{_median(p_ev):.2f} / {_median(p_host):.2f} ms; DTensor adds "
+        f"{_median(s_ev) - _median(p_ev):.2f} ms a step ({_median(s_ev) / _median(p_ev):.2f}x) "
+        f"{'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        raise AssertionError(f"sharded serve: {same_logits}/{len(want)} logits and {same_toks}/"
+                             f"{len(want_toks)} tokens bitwise equal, counts {counts} != {expected}")
+    del params, dparams, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_train(torch, mesh, card: str):
+    """(b) ``jit_train_step`` with ZeRO-3 on granite-8b at full width cut to
+    ``SHARDED_TRAIN_LAYERS`` layers (seq ``SHARDED_TRAIN_SEQ`` x batch ``SHARDED_TRAIN_BATCH``,
+    remat "full") against ``build_train_step`` from the same initial state, under
+    deterministic algorithms: each step's loss and grad norm and, after the last, every
+    leaf of the parameters and moments bitwise equal; exact launch counts. (c)
+    ``compress_psum`` over the mesh's process group on the gradient leaves of the
+    trained state, against ``tree_compress_with_feedback``: the mean and the residual
+    bitwise equal. Returns the sharded run's counts."""
+    import os
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.model import build
+    from repro_torch.sharding.rules import gather, place_tree
+    from repro_torch.training import compress
+    from repro_torch.training.data import make_batch, to_device
+    from repro_torch.training.train_step import build_train_step, init_train_state, jit_train_step
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_config(SHARDED_ARCH).replace(num_layers=SHARDED_TRAIN_LAYERS)
+    api = build(cfg, device="cuda")
+    plan = ParallelPlan(remat="full", zero3=True).restrict_to(mesh.mesh_dim_names)
+    shape = ShapeConfig("sharded", seq_len=SHARDED_TRAIN_SEQ, global_batch=SHARDED_TRAIN_BATCH,
+                        kind="train")
+    batch = to_device(make_batch(cfg, shape, 0), "cuda", torch.bfloat16)
+    kw = dict(lr=TRAIN_LR, warmup_steps=2, total_steps=100)
+    init = lambda: init_train_state(api, torch.Generator(device="cuda").manual_seed(0), plan)
+    fn, _, state_sh, batch_sh = jit_train_step(api, plan, mesh, batch, **kw)
+    L = SHARDED_TRAIN_LAYERS
+    expected = {"rmsnorm": SHARDED_TRAIN_STEPS * (4 * L + 1),
+                "flash_attention": SHARDED_TRAIN_STEPS * 2 * L, "decode_attention": 0,
+                "moe_gmm": 0, "ssd": 0}
+    torch.use_deterministic_algorithms(True)
+    try:
+        def train(step):
+            state, out = init(), []
+            for _ in range(SHARDED_TRAIN_STEPS):
+                (state, m), _, h_ms = _event_ms(torch, lambda: step(state, batch))
+                out.append((gather(m["loss"]).item(), gather(m["grad_norm"]).item(), h_ms))
+            return state, out
+
+        plain_state, plain_out = train(build_train_step(api, plan, **kw))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        state, out = train(fn)
+        counts = ops.launch_counts()
+        leaves = lambda st: [x for tree in (st.params, st.opt.mu, st.opt.nu)
+                             for _, x in tree_items(tree)]
+        same = sum(bool(torch.equal(gather(a), b))
+                   for a, b in zip(leaves(state), leaves(plain_state)))
+        n_leaves = len(leaves(plain_state))
+        emb = state.params["embed"]
+        del plain_state
+        gc.collect()
+        metrics_equal = [a[:2] == b[:2] for a, b in zip(out, plain_out)]
+        ok = all(metrics_equal) and same == n_leaves and counts == expected
+        log(f"[sharded] (b) train {cfg.name} ({L} of {get_config(SHARDED_ARCH).num_layers} "
+            f"layers, {api.param_count() / 1e9:.3f} B params) with ZeRO-3 on a (1, 1) NCCL mesh, "
+            f"{SHARDED_TRAIN_BATCH} x {SHARDED_TRAIN_SEQ} tokens, remat full, deterministic: "
+            f"loss and grad norm bitwise equal in {sum(metrics_equal)} of {SHARDED_TRAIN_STEPS} "
+            f"steps (losses {[o[0] for o in out]}), leaves (params, mu, nu) bitwise equal {same} "
+            f"of {n_leaves}; embed {tuple(emb.shape)} placed {tuple(emb.placements)}; step ms "
+            f"(host, synchronised) DTensor {[round(o[2], 1) for o in out]}, plain "
+            f"{[round(o[2], 1) for o in plain_out]}; launches " + ", ".join(
+                f"{k} {counts[k]} (expected {n})" for k, n in expected.items())
+            + f" {'ok' if ok else 'FAIL'} on {card}")
+        if not ok:
+            raise AssertionError(f"sharded train: metrics equal {metrics_equal}, {same} of "
+                                 f"{n_leaves} leaves equal, counts {counts} != {expected}")
+
+        # (c) the gradient leaves of the trained state, through the sharded loss
+        params = state.params
+        for _, p in tree_items(params):
+            p.requires_grad_(True)
+        with implicit_replication():
+            loss = api.train_loss(params, place_tree(batch, batch_sh), remat=plan.remat)
+            grads = torch.autograd.grad(loss, [p for _, p in tree_items(params)])
+        grads = {path: g.to_local() for (path, _), g in zip(tree_items(params), grads)}
+        del loss, state, params
+        zeros = {k: torch.zeros(g.shape, dtype=torch.float32, device="cuda") for k, g in grads.items()}
+        dq, res = compress.tree_compress_with_feedback(grads, compress.CompressedState(zeros))
+        group = mesh.get_group("data")
+        t0 = time.perf_counter()
+        psum = {k: compress.compress_psum(g, zeros[k], group) for k, g in grads.items()}
+        torch.cuda.synchronize()
+        psum_ms = 1e3 * (time.perf_counter() - t0)
+        same_mean = sum(bool(torch.equal(psum[k][0], dq[k])) for k in grads)
+        same_res = sum(bool(torch.equal(psum[k][1], res.residual[k])) for k in grads)
+        n_el = sum(g.numel() for g in grads.values())
+        ok = same_mean == same_res == len(grads)
+        log(f"[sharded] (c) compress_psum over the NCCL group on {len(grads)} gradient leaves "
+            f"({n_el / 1e9:.3f} B elements, {psum_ms:.1f} ms): mean equal to "
+            f"tree_compress_with_feedback's dequantized output in {same_mean} of {len(grads)}, "
+            f"residual in {same_res} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("compress_psum differs from tree_compress_with_feedback")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sharded(torch, card: str):
+    """Phase 8: the sharded steps on a (1, 1) NCCL mesh (a world of one over an
+    in-process store, torn down at the end); (d) is phase 7(b), whose ``launch.train``
+    runs on its own (1, 1) mesh. Returns the launch counts of (a) and (b)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    started = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    try:
+        log(f"[sharded] mesh {mesh}, backend {dist.get_backend()}")
+        counts = [sharded_serve(torch, mesh, card), sharded_train(torch, mesh, card)]
+    finally:
+        if started:
+            dist.destroy_process_group()
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1904,7 +2160,8 @@ def main() -> int:
         gc.collect()  # free one model before the next is built
         torch.cuda.empty_cache()
     phase_reference(torch)
-    for run in phase_train(torch, timer) + phase_launch(torch, card, timings):
+    for run in (phase_train(torch, timer) + phase_launch(torch, card, timings)
+                + phase_sharded(torch, card)):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     for k in kernels:

@@ -6,7 +6,7 @@ architectures are registered, in its order.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 from repro_torch.config import ModelConfig, validate
 from repro_torch.configs import (deepseek_67b, glm4_9b, granite_8b, hymba_1p5b, internvl2_76b,
@@ -36,3 +36,7 @@ def get_smoke(arch_id: str) -> ModelConfig:
     cfg = _module(arch_id).smoke()
     validate(cfg)
     return cfg
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -10,8 +10,10 @@ the snapshot cold-start backend builds (``core/coldstart.py``).
 
 The collective half of the reference's module (``parse_collectives``,
 ``CollectiveStats``) reads the collectives of an SPMD-partitioned HLO
-module. It waits for the sharded step and its mesh (ROADMAP A8), where
-``torch.distributed``'s ``CommDebugMode`` takes its place.
+module. Its counterpart counts the collectives of the sharded steps
+(``serving.engine.jit_serve_steps``, ``training.train_step.jit_train_step``)
+on ``launch.mesh.make_production_mesh``, where ``torch.distributed``'s
+``CommDebugMode`` takes the place of the HLO; it is not ported yet.
 """
 from __future__ import annotations
 

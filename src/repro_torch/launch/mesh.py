@@ -8,9 +8,12 @@ address or launcher. A mesh larger than the world needs the caller's
 process group (``torch.distributed.init_process_group`` with its address,
 world size and rank).
 
-The reference's ``make_production_mesh`` (16 x 16, or 2 x 16 x 16 over
-pods) waits for the sharded step (ROADMAP A8), on torch's fake process
-group.
+``make_production_mesh`` is the reference's 16 x 16 mesh, or 2 x 16 x 16
+over pods, built on torch's ``fake`` process group: one process holds every
+rank, collectives do nothing, and shapes, placements and the sharded
+steps' structure can be worked out at production size on one host. A
+process has one default group, so it refuses when a group of another
+backend is already up, and does not tear that group down.
 """
 from __future__ import annotations
 
@@ -19,6 +22,29 @@ from typing import Sequence
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production mesh: (16, 16) over ("data", "model"), or (2, 16, 16) over
+    ("pod", "data", "model"), of CPU devices on a ``fake`` process group of that
+    many ranks (started here if the process has none; one already up is reused if
+    it is ``fake`` and has as many ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = math.prod(shape)
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if backend != "fake":
+            raise RuntimeError(f"make_production_mesh needs the 'fake' process group, but a "
+                               f"{backend!r} group is up; destroy it first")
+        if dist.get_world_size() < world:
+            raise RuntimeError(f"the fake group has {dist.get_world_size()} ranks; the "
+                               f"production mesh needs {world}")
+    else:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = "cuda") -> DeviceMesh:

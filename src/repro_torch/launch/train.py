@@ -7,9 +7,13 @@ automatic restore from the latest checkpoint at startup (a checkpoint
 written by the reference's loop restores here too), and bitwise-resumable
 data order.
 
-The step runs on a world of one. The reference places its state on a
-``(devices, 1)`` mesh; here a process group of more than one rank is
-refused, naming the sharded step it needs (ROADMAP A8).
+As the reference does, the step runs on a ``(world, 1)`` mesh over
+("data", "model"), ZeRO-3 when the world is larger than one: the state is
+placed by ``make_train_state_specs`` and ``jit_train_step`` runs it, each
+rank on its shard. A world of more than one needs the caller's process
+group (``torch.distributed.init_process_group``); a world of one is started
+here and torn down at the end. Checkpoints hold the state whole, written by
+rank 0, so a checkpoint restores in a world of any size.
 
     python -m repro_torch.launch.train --arch whisper-base --steps 20            # the card
     python -m repro_torch.launch.train --arch granite-8b --smoke --steps 50 \\
@@ -28,12 +32,16 @@ import torch.distributed as dist
 from repro_torch.config.parallel import ParallelPlan
 from repro_torch.config.shapes import ShapeConfig
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.specs import train_batch_specs
 from repro_torch.models.common import torch_dtype
 from repro_torch.models.model import build
-from repro_torch.training.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from repro_torch.sharding.rules import gather
+from repro_torch.training.checkpoint import (AsyncCheckpointer, host_tree, latest_step,
+                                             restore_checkpoint)
 from repro_torch.training.data import PrefetchingLoader, to_device
-from repro_torch.training.train_step import (abstract_train_state, build_train_step,
-                                             init_train_state)
+from repro_torch.training.train_step import (abstract_train_state, init_train_state,
+                                             jit_train_step, place_state)
 
 
 @dataclass
@@ -77,33 +85,49 @@ def _sync(device: torch.device) -> None:
 def run(args) -> TrainRun:
     """Train to ``args.steps`` from the latest checkpoint under ``args.ckpt_dir``
     (or from ``args.seed``); returns the steps this run took."""
+    started = not dist.is_initialized()
     world = _world()
-    if world > 1:
-        raise NotImplementedError(
-            f"training on a mesh of {world} devices needs the sharded train step "
-            "(ROADMAP A8); this CLI runs on a world of one")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    device = args.device
+    if device == "cuda" and world > 1:
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    api = build(cfg, device=args.device)
+    api = build(cfg, device=device)
     plan = ParallelPlan(
         remat=args.remat,
         grad_accum=args.grad_accum,
         compress_grads=args.compress_grads,
-        zero3=False,
+        zero3=world > 1,
     ).restrict_to(("data", "model"))
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
-    print(f"arch={cfg.name} params={api.param_count() / 1e6:.1f}M devices=1 device={api.device}")
-    step_fn = build_train_step(api, plan, lr=args.lr, total_steps=args.steps)
+    try:
+        mesh = make_mesh((world, 1), ("data", "model"), device_type=api.device.type)
+        if rank == 0:
+            print(f"arch={cfg.name} params={api.param_count() / 1e6:.1f}M devices={world} "
+                  f"device={api.device}")
+        step_fn, _, state_sh, _ = jit_train_step(api, plan, mesh, train_batch_specs(cfg, shape),
+                                                 lr=args.lr, total_steps=args.steps)
+        return _train(args, api, plan, shape, step_fn, state_sh, rank)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(args, api, plan, shape, step_fn, state_sh, rank: int) -> TrainRun:
+    cfg = api.cfg
     start_step = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, start_step = restore_checkpoint(args.ckpt_dir, None, abstract_train_state(api, plan),
                                                device=api.device)
-        print(f"restored checkpoint at step {start_step}")
+        if rank == 0:
+            print(f"restored checkpoint at step {start_step}")
     else:
         gen = torch.Generator(device=api.device).manual_seed(args.seed)
         state = init_train_state(api, gen, plan)
+    state = place_state(state, state_sh)
 
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir and rank == 0 else None
     loader = PrefetchingLoader(cfg, shape, start_step=start_step,
                                num_steps=args.steps - start_step, seed=args.seed)
     dtype = torch_dtype(cfg.dtype)
@@ -119,22 +143,25 @@ def run(args) -> TrainRun:
             _sync(api.device)
             te = time.perf_counter()  # det-lint: waive[wall-clock] reason=step time of real training
             out.step_s[step + 1] = te - ts
-            out.losses[step + 1] = float(metrics["loss"])
-            out.grad_norms[step + 1] = float(metrics["grad_norm"])
+            out.losses[step + 1] = float(gather(metrics["loss"]))
+            out.grad_norms[step + 1] = float(gather(metrics["grad_norm"]))
             tokens_done += args.batch * args.seq
-            if (step + 1) % args.log_every == 0 or step == start_step:
+            if rank == 0 and ((step + 1) % args.log_every == 0 or step == start_step):
                 dt = time.perf_counter() - t0  # det-lint: waive[wall-clock] reason=CLI report
                 print(f"step {step + 1:5d} loss {out.losses[step + 1]:7.4f} grad_norm "
                       f"{out.grad_norms[step + 1]:8.3f} tok/s {tokens_done / dt:,.0f}")
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, state)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                host = host_tree(state)   # every rank: the sharded leaves are gathered
+                if ckpt:
+                    ckpt.save(step + 1, host)
     finally:
         loader.close()
         if ckpt:
             ckpt.close()
     if ckpt:
         print(f"final checkpoint at {args.ckpt_dir}")
-    print("training done")
+    if rank == 0:
+        print("training done")
     return out
 
 

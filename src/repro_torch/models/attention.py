@@ -24,6 +24,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding.constraints import local_span
 
 NEG_INF = -1e30
 
@@ -161,9 +164,37 @@ def cache_write_decode(cache_k, cache_v, slot_pos, k_new, v_new, pos, ring: bool
     reference does. Writing in place moves only the touched rows, where the
     reference's functional update would return a new cache.
     """
+    if isinstance(cache_k, DTensor):
+        for cache, new in ((cache_k, k_new), (cache_v, v_new), (slot_pos, pos)):
+            _write_shard(cache, new, pos, slot_pos.shape[1], ring)
+        return
     b, s = slot_pos.shape
     slot = (pos % s if ring else torch.clamp(pos, max=s - 1)).long()
     bidx = torch.arange(b, device=pos.device)
     cache_k[bidx, slot] = k_new.to(cache_k.dtype)
     cache_v[bidx, slot] = v_new.to(cache_v.dtype)
     slot_pos[bidx, slot] = pos.to(torch.int32)
+
+
+def _write_shard(cache: DTensor, new, pos, s: int, ring: bool) -> None:
+    """``cache_write_decode`` of one cache leaf ([B, S, ...]) on this rank's shard:
+    ``new`` [B, ...] (the leaf's dims without S) and ``pos`` [B] are first placed
+    as the cache's batch and trailing dims are; only the rows whose slot lies in
+    the local span of S are written."""
+    mesh = cache.device_mesh
+    to_new = lambda p: (p if p == Shard(0) else Shard(p.dim - 1) if isinstance(p, Shard)
+                        and p.dim >= 2 else Replicate())
+    rows = tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
+    local_as = lambda t, placements: (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, (Replicate(),) * mesh.ndim, run_check=False)).redistribute(
+            mesh, placements).to_local()
+    new_l = local_as(new, tuple(to_new(p) for p in cache.placements))
+    pos_l = local_as(pos, rows)
+    s_off, s_n = local_span(cache, 1)
+    slot = (pos_l % s if ring else torch.clamp(pos_l, max=s - 1)).long() - s_off
+    bidx = torch.arange(pos_l.shape[0], device=pos_l.device)
+    local = cache.to_local()
+    if s_n < s:   # S is sharded: only the rows whose slot is here
+        mine = (slot >= 0) & (slot < s_n)
+        bidx, slot, new_l = bidx[mine], slot[mine], new_l[mine]
+    local[bidx, slot] = new_l.to(local.dtype)

@@ -75,6 +75,20 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
 
 
+def is_spec(x: Any) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map_specs(fn: Callable[[ParamSpec], Any], template):
+    """``fn`` at every ``ParamSpec`` of a template (a spec is a leaf, not a tuple)."""
+    return tree_map(fn, template)
+
+
+def logical_axes(template):
+    """The template's logical axis names, leaf by leaf."""
+    return tree_map_specs(lambda s: s.axes, template)
+
+
 def _fan_in(shape: Tuple[int, ...]) -> int:
     if len(shape) == 1:
         return shape[0]

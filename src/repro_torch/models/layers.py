@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.constraints import shard_act, take_last, take_rows
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm over the last dim; the rmsnorm kernel's plain version."""
@@ -35,7 +37,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    g, u = x @ w_gate, x @ w_up
+    if g.dim() == 3:
+        g, u = shard_act(g, "bsf"), shard_act(u, "bsf")
+    return (F.silu(g) * u) @ w_down
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
@@ -73,14 +78,14 @@ def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return take_rows(table, tokens)
 
 
 def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, tc: torch.Tensor,
                 mc: torch.Tensor) -> torch.Tensor:
     """Sum over one chunk of ``mc``-weighted token losses, float32."""
-    logits = (hc @ lm_head).float()                          # [B, chunk, V]
-    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    logits = shard_act((hc @ lm_head).float(), "bsv")        # [B, chunk, V]
+    gold = take_last(logits, tc.long())
     return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
 
 

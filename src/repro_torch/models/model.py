@@ -31,6 +31,12 @@ class ModelApi:
         """The parameters as ``meta`` tensors: shapes and dtypes, no storage."""
         return common.abstract_params(self.param_template, self.cfg.dtype)
 
+    def logical_axes(self):
+        return common.logical_axes(self.param_template)
+
+    def cache_logical_axes(self, batch: int, cache_len: int):
+        return common.logical_axes(self.cache_spec(batch, cache_len))
+
     def abstract_cache(self, batch: int, cache_len: int):
         """The cache spec's shapes and dtypes as ``meta`` tensors, as the
         reference's ``abstract_cache`` gives them (a leaf whose spec names no

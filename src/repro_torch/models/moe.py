@@ -35,6 +35,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import swiglu
+from repro_torch.sharding.constraints import unshard
 
 
 def param_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -103,8 +104,8 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
     # rank of each (token, choice) within its expert: exclusive cumsum, token-major.
     # The scan runs along the last dim ([G, E, T*k]): on CUDA a scan over an
     # outer dim with E = 64 columns took ~1.5 ms per layer at T = 1024.
-    counts = torch.cumsum(onehot_e.reshape(g, t * k, e).transpose(1, 2).contiguous(), dim=-1,
-                          dtype=torch.int32)
+    counts = torch.cumsum(unshard(onehot_e.reshape(g, t * k, e).transpose(1, 2).contiguous(), -1),
+                          dim=-1, dtype=torch.int32)
     rank = ((counts.transpose(1, 2).reshape(g, t, k, e) - 1) * onehot_e).sum(dim=-1)  # [G, T, k]
     onehot_c = (rank[..., None] == torch.arange(cap, device=x.device)).float()  # 0: dropped
     onehot_e = onehot_e.float()
@@ -114,7 +115,9 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
     combine = torch.einsum("gtke,gtkc->gtec", onehot_e * w[..., None], onehot_c)
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x)
-    ye = _groups_ffn(xe, p, counts[..., -1])
+    # expert-sharded outputs are gathered before the combine contracts E (torch 2.11's
+    # DTensor cannot flatten the sharded E into the product's rows)
+    ye = unshard(_groups_ffn(xe, p, counts[..., -1]), 1)
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
     return y, aux
 

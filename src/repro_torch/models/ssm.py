@@ -13,6 +13,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
@@ -49,7 +50,12 @@ class SSMState(NamedTuple):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over [B, S, C] with kernel [wc, C]: float32 sums in tap
-    order, cast to x's dtype."""
+    order, cast to x's dtype. A DTensor runs it on local shards, batch and channels
+    sharded as they come and S whole (``ops.on_shards``): torch 2.11's DTensor
+    cannot pad a sharded [B, S, C]."""
+    if isinstance(x, DTensor):
+        bc = {"b": 0, "c": 2}
+        return ops.on_shards(_causal_conv, (x, w, b), (bc, {"c": 1}, {"c": 0}), (bc,))
     wc, s = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, wc - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

@@ -36,6 +36,7 @@ from repro_torch.models.attention import cache_write_decode, promote
 from repro_torch.models.common import ParamSpec, empty_tree, tree_map
 from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, default_loss_chunk,
                                       embed_tokens, swiglu)
+from repro_torch.sharding.constraints import shard_act
 
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
 # (``cache_spec`` leaves carry no dtype and ``empty_cache`` defaults to bf16).
@@ -121,8 +122,10 @@ def _qkv(x, ap, cfg: ModelConfig):
     q, k, v = x @ ap["wq"], x @ ap["wk"], x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    return (q.reshape(*lead, cfg.num_heads, dh), k.reshape(*lead, cfg.num_kv_heads, dh),
-            v.reshape(*lead, cfg.num_kv_heads, dh))
+    q, k, v = (q.reshape(*lead, cfg.num_heads, dh), k.reshape(*lead, cfg.num_kv_heads, dh),
+               v.reshape(*lead, cfg.num_kv_heads, dh))
+    kind = "bshd" if len(lead) == 2 else "bhd"   # full sequence / decode
+    return tuple(shard_act(t, kind) for t in (q, k, v))
 
 
 def attn_full(x, ap, cfg: ModelConfig, *, window: int = 0):

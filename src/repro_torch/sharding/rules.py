@@ -26,7 +26,8 @@ A spec is a plain tuple with the entries of the reference's
 or a tuple of names; trailing ``None``s stripped. ``placements`` turns it
 into one ``Shard(dim)`` or ``Replicate()`` per mesh dimension, and the
 ``*_shardings`` functions return trees of ``MeshSharding`` (mesh, spec,
-placements), the counterpart of ``NamedSharding``. A mesh is a
+placements), the counterpart of ``NamedSharding``; ``place`` and
+``place_tree`` put tensors where they say, as ``jax.device_put`` does. A mesh is a
 ``DeviceMesh`` or any object with ``axis_names`` and a ``shape`` mapping
 (the reference's test stub), so the rules are exercised at production mesh
 sizes on one CPU.
@@ -37,10 +38,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
-from torch.distributed.tensor import Placement, Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 from repro_torch.config.parallel import ParallelPlan
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_items, tree_map, tree_map_with_path
 
 AxisRules = Dict[Optional[str], Tuple[Tuple[str, ...], ...]]
 Spec = Tuple[Any, ...]
@@ -196,3 +198,26 @@ def tree_batch_shardings(abstract_batch, plan: ParallelPlan, mesh):
 
 def replicated(mesh) -> MeshSharding:
     return _sharding(mesh, (), 0)
+
+
+def place(x: torch.Tensor, sharding: MeshSharding) -> DTensor:
+    """``x`` as a DTensor with ``sharding``'s placements: a plain tensor (the same
+    whole value on every rank) is distributed, a DTensor placed otherwise is
+    redistributed, one placed so is returned as it is."""
+    if isinstance(x, DTensor):
+        if x.device_mesh == sharding.mesh and tuple(x.placements) == sharding.placements:
+            return x
+        return x.redistribute(sharding.mesh, sharding.placements)
+    return distribute_tensor(x, sharding.mesh, sharding.placements)
+
+
+def place_tree(tree, shardings):
+    """``place`` at every leaf of a tree of dicts and lists, by ``shardings``, a tree
+    with the same paths."""
+    by_path = dict(tree_items(shardings))
+    return tree_map_with_path(lambda path, x: place(x, by_path[path]), tree)
+
+
+def gather(x):
+    """The whole value of a DTensor on every rank (a plain tensor as it is)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x

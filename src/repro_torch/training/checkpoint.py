@@ -15,7 +15,10 @@ leaf. Writes go to ``<step dir>.tmp``, the manifest is fsync'd, then the
 directory is renamed, so a crash never leaves a half checkpoint that looks
 whole; every shard's sha256[:16] is checked before a restore uses it.
 ``AsyncCheckpointer.save`` copies the tensors to host memory before it
-returns and writes them on its thread.
+returns and writes them on its thread. A sharded state (DTensor leaves) is
+saved whole: ``host_tree`` gathers every leaf, which is a collective, so
+every rank calls it and one rank writes; a restore gives whole tensors,
+whatever world wrote them.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import resolve_device
 
@@ -84,14 +88,17 @@ def _host(t) -> _Host:
         return t
     if not isinstance(t, torch.Tensor):
         return _Host(np.asarray(t), False)
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return _Host(t.view(torch.int16).numpy().view(np.uint16), True)
     return _Host(t.numpy(), False)
 
 
-def _host_tree(tree):
-    """``tree`` with every tensor copied to host memory."""
+def host_tree(tree):
+    """``tree`` with every tensor copied, whole, to host memory (a DTensor leaf
+    gathered: every rank of its mesh calls this)."""
     return _rebuild(tree, lambda _, t: _host(t))
 
 
@@ -100,7 +107,7 @@ def _hash_bytes(b: bytes) -> str:
 
 
 def save_checkpoint(directory: str, step: int, tree) -> str:
-    """Synchronous save of ``tree`` (tensors, or a ``_host_tree``). Returns the path."""
+    """Synchronous save of ``tree`` (tensors, or a ``host_tree``). Returns the path."""
     ckpt = os.path.join(directory, f"step_{step:08d}")
     tmp = ckpt + ".tmp"
     if os.path.exists(tmp):
@@ -203,7 +210,7 @@ class AsyncCheckpointer:
         """Copy ``tree`` to host memory now; write it to disk in the background."""
         if self._err:
             raise self._err
-        self._q.put((step, _host_tree(tree)))
+        self._q.put((step, host_tree(tree)))
 
     def wait(self):
         self._q.join()

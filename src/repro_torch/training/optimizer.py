@@ -39,6 +39,13 @@ def adamw_init(params) -> AdamWState:
                       nu=_zeros_like_f32(params))
 
 
+def abstract_adamw_state(abstract_params) -> AdamWState:
+    """The state ``adamw_init`` makes for ``abstract_params``, as ``meta`` tensors."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=tree_map(f32, abstract_params), nu=tree_map(f32, abstract_params))
+
+
 def _cosine_lr(step: int, base_lr: float, warmup: int, total: int) -> float:
     """The learning rate of step ``step`` (from 0), in float32 as the reference's:
     linear warmup over ``warmup`` steps, then a cosine to 0 at ``total``."""

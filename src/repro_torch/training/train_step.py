@@ -16,22 +16,33 @@ Counterpart of ``repro.training.train_step`` on one device.
 The metrics are 0-dim tensors: ``loss`` (float32), ``grad_norm``, ``lr``.
 ``make_train_state_specs`` gives the state's abstract tree and its
 placements on a ``DeviceMesh`` (``sharding.rules``), as the reference's gives
-its shardings. ``launch.train`` runs the step on a world of one, which
-needs no placements. The reference's ``jit_train_step``, the step sharded
-over a mesh larger than one device, waits for ROADMAP A8's sharded step,
-which consumes them.
+its shardings.
+
+``jit_train_step`` is the reference's step sharded over a mesh, eager ("jit"
+keeps the reference's name): it places the state by those placements (with
+``zero3`` the embed dim is sharded over the fsdp axes: ZeRO-3) and the batch
+over the data axes, runs the same step on DTensors under
+``implicit_replication`` (the plain tensors the model builds from global
+shapes are the same on every rank), and returns the metrics replicated.
+Each gradient is redistributed to its parameter's placements (a ``Partial``
+sum reduced, or reduce-scattered onto the shard), so AdamW updates each
+DTensor leaf in place, on its shard. The step counter stays a host tensor,
+as ``adamw_init`` makes it.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config.parallel import ParallelPlan
 from repro_torch.models.common import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.model import ModelApi
 from repro_torch.training import compress as compress_lib
-from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
+from repro_torch.training.optimizer import (AdamWState, abstract_adamw_state, adamw_init,
+                                            adamw_update)
 
 
 class TrainState(NamedTuple):
@@ -49,11 +60,12 @@ def init_train_state(api: ModelApi, generator: torch.Generator, plan: ParallelPl
 def abstract_train_state(api: ModelApi, plan: ParallelPlan) -> TrainState:
     """The state's structure, shapes and dtypes as ``meta`` tensors: a restore's
     template that allocates nothing."""
-    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
     params = api.abstract_params()
-    f32 = lambda: tree_map(lambda p: meta(p.shape, torch.float32), params)
-    residual = compress_lib.CompressedState(residual=f32()) if plan.compress_grads else None
-    return TrainState(params, AdamWState(meta((), torch.int32), f32(), f32()), residual)
+    residual = None
+    if plan.compress_grads:
+        residual = compress_lib.CompressedState(residual=tree_map(
+            lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), params))
+    return TrainState(params, abstract_adamw_state(params), residual)
 
 
 def make_train_state_specs(api: ModelApi, plan: ParallelPlan, mesh) -> Tuple[TrainState, TrainState]:
@@ -110,6 +122,8 @@ def build_train_step(api: ModelApi, plan: ParallelPlan, *, lr: float = 3e-4,
             loss_sum = loss_sum / accum
             for a in acc:
                 a.div_(accum)
+        acc = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+               for g, p in zip(acc, leaves)]
         by_path = dict(zip((path for path, _ in tree_items(state.params)), acc))
         grads = tree_map_with_path(lambda path, _: by_path[path], state.params)
         for p in leaves:
@@ -124,3 +138,38 @@ def build_train_step(api: ModelApi, plan: ParallelPlan, *, lr: float = 3e-4,
         return TrainState(params, opt, residual), {"loss": loss_sum, **opt_metrics}
 
     return step
+
+
+def place_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """``state`` placed by ``shardings`` (``sharding.rules.place`` at every leaf);
+    the step counter stays where it is."""
+    from repro_torch.sharding.rules import place_tree
+
+    residual = state.residual
+    if residual is not None:
+        residual = compress_lib.CompressedState(place_tree(residual.residual,
+                                                           shardings.residual.residual))
+    return TrainState(place_tree(state.params, shardings.params),
+                      AdamWState(state.opt.step, place_tree(state.opt.mu, shardings.opt.mu),
+                                 place_tree(state.opt.nu, shardings.opt.nu)), residual)
+
+
+def jit_train_step(api: ModelApi, plan: ParallelPlan, mesh, abstract_batch, **kw):
+    """(fn, abstract_state, state_shardings, batch_shardings): ``fn(state, batch) ->
+    (state, metrics)`` on ``mesh``, with ``build_train_step``'s keywords ``kw``.
+    ``abstract_batch`` is the batch's tree (any tensors of its shapes)."""
+    from repro_torch.sharding.rules import place, place_tree, replicated, tree_batch_shardings
+
+    step = build_train_step(api, plan, **kw)
+    abstract, state_sh = make_train_state_specs(api, plan, mesh)
+    batch_sh = tree_batch_shardings(abstract_batch, plan, mesh)
+    rep = replicated(mesh)
+
+    def fn(state: TrainState, batch):
+        state = place_state(state, state_sh)
+        batch = place_tree(batch, batch_sh)
+        with implicit_replication():
+            state, metrics = step(state, batch)
+        return place_state(state, state_sh), {k: place(v, rep) for k, v in metrics.items()}
+
+    return fn, abstract, state_sh, batch_sh

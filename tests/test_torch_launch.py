@@ -286,14 +286,6 @@ def test_train_crash_and_resume_equals_an_uninterrupted_run(tmp_path):
     assert {**first.grad_norms, **second.grad_norms} == straight.grad_norms
 
 
-def test_train_refuses_a_mesh_larger_than_one(tmp_path, monkeypatch):
-    """In a process group of 2 ranks the CLI names the sharded step it needs."""
-    monkeypatch.setattr(train, "_world", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        train.run(_train_args(tmp_path, "--steps", "1"))
-    assert not dist.is_initialized() and not os.listdir(tmp_path)
-
-
 def test_default_loss_chunk_trains_a_seq_the_reference_refuses():
     """The reference's train_loss picks a loss chunk of 128 for an odd vocabulary and
     then refuses any S it does not divide (whisper-base's 448; ROADMAP C). The port
