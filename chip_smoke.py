@@ -89,6 +89,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``build_train_step``: losses, grad norms and every leaf bitwise equal,
      exact counts; (c) ``compress_psum`` over the NCCL group on (b)'s
      gradient leaves, equal to ``tree_compress_with_feedback`` bitwise.
+  9. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch all --shape all --mesh
+     both`` as a child process (the production meshes on torch's fake process
+     group, ``meta`` tensors): no cell fails, the skipped cells are exactly the
+     ones ``applicability`` skips, one line a cell (bottleneck, counted FLOPs over
+     ``model_flops``, peak bytes a device against the card's 80 GB); (b) phase
+     8(a)'s granite-8b prefill and one decode step on a (1, 1) NCCL mesh, counted on
+     ``meta`` tensors through ``launch.dryrun.run_cell`` and live on the card under
+     the same ``CostCounter``: FLOPs, bytes and per-kernel calls equal; each step's
+     ``H100_SXM`` roofline beside its CUDA-event time, plain and through DTensor,
+     none faster than its roofline.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of the JAX package is imported.
@@ -173,6 +183,9 @@ LAUNCH_TRAIN_FLAGS = ("--seq", "448", "--batch", "8", "--remat", "full", "--ckpt
 # seq 1024 x batch 4, 3 steps, remat "full", under deterministic algorithms
 SHARDED_ARCH, SHARDED_PROMPTS, SHARDED_DECODE = "granite-8b", 4, 16
 SHARDED_TRAIN_LAYERS, SHARDED_TRAIN_SEQ, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 1024, 4, 3
+# phase 9: the dry-run's grid (one worker process a core), and the timed repeats of each
+# step in (b)
+DRYRUN_MESH, DRYRUN_TIMEOUT_S, DRYRUN_REPEATS = "both", 480, 3
 
 
 def log(msg: str) -> None:
@@ -315,6 +328,11 @@ def phase_kernels(torch, timer: Timer):
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
 
+    def meta(shape, dt):
+        """A stand-in of the shape and dtype for a kernel's ``cost``, the one formula of
+        its bound (``launch.hlo_counter`` counts by it too)."""
+        return torch.empty(shape, dtype=dt, device="meta")
+
     def record(entry, main: bool, name, case, make, nbytes, flops, dtype_name, op_type,
                label=None, tol=None):
         """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them;
@@ -354,9 +372,9 @@ def phase_kernels(torch, timer: Timer):
                 return (lambda: krms.rmsnorm(x, s, 1e-5), lambda: krms.plain(x, s, 1e-5),
                         (lambda: lib_rms(x, (shape[-1],), s, 1e-5)) if lib_rms else None)
 
-            numel, size = int(np.prod(shape)), torch.tensor([], dtype=dt).element_size()
+            c = krms.cost(meta(shape, dt), meta(shape[-1:], dt))
             record(e_rms, dtn == "bfloat16" and shape == (1, 1024, 4096), "rmsnorm", str(shape),
-                   make, (2 * numel + shape[-1]) * size, 4.0 * numel, dtn,
+                   make, c.bytes, c.flops, dtn,
                    "float32")  # the statistics are float32 arithmetic
     rows.append(e_rms)
 
@@ -383,12 +401,12 @@ def phase_kernels(torch, timer: Timer):
                         lambda: kfl.plain(q, k, v, causal=True, window=window),
                         lib if has_gqa else None)
 
-            size = torch.tensor([], dtype=dt).element_size()
-            nbytes = (2 * sq * hq * 128 + 2 * sq * hkv * 128) * size  # q and out, k and v
-            flops = 4.0 * hq * 128 * int(allowed.sum())              # QK^T and PV on allowed pairs
+            # q and out, k and v; QK^T and PV on the allowed pairs
+            c = kfl.cost(meta((1, sq, hq, 128), dt), meta((1, sq, hkv, 128), dt),
+                         meta((1, sq, hkv, 128), dt), causal=True, window=window)
             record(e_fl, dtn == "bfloat16" and hq == 32 and sq == 1024 and window == 0,
                    "flash_attention", f"q[1,{sq},{hq},128] kv[1,{sq},{hkv},128] causal window={window}",
-                   make, nbytes, flops, dtn, dtn)
+                   make, c.bytes, c.flops, dtn, dtn)
     rows.append(e_fl)
 
     # --- decode attention: B 4, S 1024, partly filled slots (-1 empty); granite (G = 4),
@@ -434,16 +452,16 @@ def phase_kernels(torch, timer: Timer):
 
         # this run's data: only valid slots need K and V; a row without one, V's S slots
         n_valid, n_none = int(valid.sum()), int((~valid.any(dim=1)).sum())
-        qsize, csize = (torch.tensor([], dtype=t).element_size() for t in (qdt, cdt))
-        nbytes = ((2 * n_valid + s * n_none) * hkv * 128 * csize + b * hq * 128 * (qsize + csize)
-                  + (b * s + b) * 4)
+        csize = torch.tensor([], dtype=cdt).element_size()
+        c = kdec.cost(meta((b, hq, 128), qdt), meta((b, s, hkv, 128), cdt), meta((b, s, hkv, 128), cdt),
+                      meta((b, s), torch.int32), meta((b,), torch.int32), valid=n_valid,
+                      rows_without=n_none)
         types = cdtn if qdt == cdt else f"float32 q, {cdtn} cache"
         record(e_dec, cdtn == "bfloat16" and qdt == cdt and hq == 32 and window == 0 and not what,
                "decode_attention",
                f"q[{b},{hq},128] cache[{b},1024,{hkv},128] window={window} valid_slots={n_valid}"
                f"{what} splits={kdec.split_plan(b, hkv, s, hq // hkv, csize, 128)}",
-               make, nbytes, 4.0 * hq * 128 * n_valid + hkv * 128 * s * n_none, cdtn,
-               "float32" if qdt != cdt else cdtn, label=types)
+               make, c.bytes, c.flops, cdtn, "float32" if qdt != cdt else cdtn, label=types)
     rows.append(e_dec)
 
     # --- moe_gmm: olmoe's expert products at prefill (C = 160) and decode (C = 8) with every
@@ -496,14 +514,14 @@ def phase_kernels(torch, timer: Timer):
                 return (lambda: kgmm.moe_gmm(xe, we, live), lambda: kgmm.plain(xe, we, live),
                         lambda: torch.bmm(xe, we))
 
-            size = torch.tensor([], dtype=dt).element_size()
             # this run's data: the weights of experts with a live row, the live rows of xe;
             # every output row is written
             n_rows, n_exp = int(mask.sum()), int(mask.any(dim=1).sum())
             lv = "" if live is None else f" live_rows={n_rows} live_experts={n_exp}"
+            cost = kgmm.cost(meta((e, c, d), dt), meta((e, d, f), dt), rows=n_rows, experts=n_exp)
             record(e_gmm, dtn == "bfloat16" and what == "decode gate/up", "moe_gmm",
-                   f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]{lv}", make,
-                   (n_rows * d + n_exp * d * f + e * c * f) * size, 2.0 * n_rows * d * f, dtn, dtn)
+                   f"{what} xe[{e},{c},{d}] we[{e},{d},{f}]{lv}", make, cost.bytes, cost.flops,
+                   dtn, dtn)
     rows.append(e_gmm)
 
     # --- hymba's attention (G = 5, head_dim 64): bf16 flash runs on the tensor cores, one
@@ -511,7 +529,6 @@ def phase_kernels(torch, timer: Timer):
     # 12 positions); prefill at 2048 with the sliding window and without it, and a ragged
     # Sq; decode on a wrapped 1024-slot ring (window 1024) and on a global cache ---
     for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        size = torch.tensor([], dtype=dt).element_size()
         for sq, window in ((HYMBA_CACHE, 1024), (HYMBA_CACHE, 0), (1000, 0)):  # 1000: ragged Sq
             qp, kp = torch.arange(sq, device="cuda")[:, None], torch.arange(sq, device="cuda")[None]
             allowed = (kp <= qp) & ((qp - kp < window) if window > 0 else True)
@@ -528,10 +545,11 @@ def phase_kernels(torch, timer: Timer):
                         lambda: kfl.plain(q, k, v, causal=True, window=window),
                         lib if has_gqa else None)
 
+            c = kfl.cost(meta((1, sq, 25, 64), dt), meta((1, sq, 5, 64), dt),
+                         meta((1, sq, 5, 64), dt), causal=True, window=window)
             record(e_fl, False, "flash_attention",
                    f"hymba q[1,{sq},25,64] kv[1,{sq},5,64] causal window={window}", make,
-                   (2 * sq * 25 * 64 + 2 * sq * 5 * 64) * size, 4.0 * 25 * 64 * int(allowed.sum()),
-                   dtn, dtn)
+                   c.bytes, c.flops, dtn, dtn)
         # cur positions per row; the ring of 1024 slots holds positions cur-1023..cur at
         # slot position % 1024 (empty slots -1), as the hybrid prefill and decode leave it
         cur = torch.tensor([1500, 1100, 2000, 700], device="cuda", dtype=torch.int32)
@@ -556,11 +574,12 @@ def phase_kernels(torch, timer: Timer):
                         lib if has_gqa else None)
 
             n_valid = int(valid.sum())
+            c = kdec.cost(meta((4, 25, 64), dt), meta((4, s_len, 5, 64), dt),
+                          meta((4, s_len, 5, 64), dt), meta((4, s_len), torch.int32),
+                          meta((4,), torch.int32), valid=n_valid)
             record(e_dec, False, "decode_attention",
                    f"hymba q[4,25,64] {'ring' if window else 'global'} cache[4,{s_len},5,64] "
-                   f"window={window} valid_slots={n_valid}", make,
-                   2 * n_valid * 5 * 64 * size + 4 * 25 * 64 * 2 * size + (4 * s_len + 4) * 4,
-                   4.0 * 25 * 64 * n_valid, dtn, dtn)
+                   f"window={window} valid_slots={n_valid}", make, c.bytes, c.flops, dtn, dtn)
 
     # --- the attention modes of glm4-9b (G = 16), qwen2.5-32b (40 query heads, G = 5),
     # deepseek-67b and internvl2-76b (64 query heads, G = 8) and whisper-base (G = 1,
@@ -587,11 +606,11 @@ def phase_kernels(torch, timer: Timer):
                 return (lambda: kfl.flash_attention(q, k, v, causal=causal),
                         lambda: kfl.plain(q, k, v, causal=causal), lib if has_gqa else None)
 
-            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            c = kfl.cost(meta((1, sq, hq, dh), dt), meta((1, sk, hkv, dh), dt),
+                         meta((1, sk, hkv, dh), dt), causal=causal)
             record(e_fl, False, "flash_attention",
                    f"{what} q[1,{sq},{hq},{dh}] kv[1,{sk},{hkv},{dh}] "
-                   f"{'causal' if causal else 'non-causal'}", make,
-                   (2 * sq * hq + 2 * sk * hkv) * dh * size, 4.0 * hq * dh * pairs, dtn, dtn)
+                   f"{'causal' if causal else 'non-causal'}", make, c.bytes, c.flops, dtn, dtn)
         b = 4   # the 1024-slot caches filled to `fill` as above; the cross cache all valid
         part_slot = torch.where(ar < fill[:, None], ar, -1).to(torch.int32).contiguous()
         part_cur = (fill - 1).to(torch.int32)
@@ -621,11 +640,13 @@ def phase_kernels(torch, timer: Timer):
                         lambda: kdec.plain(q, kc, vc, slot_, cur_), lib if has_gqa else None)
 
             n_valid = int(valid.sum())
+            c = kdec.cost(meta((b, hq, dh), dt), meta((b, s_len, hkv, dh), dt),
+                          meta((b, s_len, hkv, dh), dt), meta((b, s_len), torch.int32),
+                          meta((b,), torch.int32), valid=n_valid)
             record(e_dec, False, "decode_attention",
                    f"{what} q[{b},{hq},{dh}] cache[{b},{s_len},{hkv},{dh}] valid_slots={n_valid} "
                    f"splits={kdec.split_plan(b, hkv, s_len, hq // hkv, size, dh)}", make,
-                   2 * n_valid * hkv * dh * size + 2 * b * hq * dh * size + (b * s_len + b) * 4,
-                   4.0 * hq * dh * n_valid, dtn, dtn)
+                   c.bytes, c.flops, dtn, dtn)
 
     # --- ssd: the prefill scans of mamba2 (x [1,1024,24,64], N = 128) and hymba
     # (x [1,2048,50,64], N = 16), chunk 128, and tests/test_kernels.py:101-104's shapes ---
@@ -645,20 +666,15 @@ def phase_kernels(torch, timer: Timer):
                 return (lambda: kssd.ssd(x, a, bm, cm, chunk=chunk),
                         lambda: kssd.plain(x, a, bm, cm, min(chunk, s_len)), None)
 
-            size = torch.tensor([], dtype=dt).element_size()
-            l = min(chunk, s_len)
-            nc = s_len // l
-            # x and y, b and c in x's dtype, a and the final state in float32
-            nbytes = (2 * b * s_len * h * p + 2 * b * s_len * n) * size + (b * s_len * h + b * h * p * n) * 4
-            # C·Bᵀ once per chunk (shared by the heads), then per (head, chunk) the three
-            # l·P-sized products: (L ⊙ C·Bᵀ)·X, C·hᵀ and Xᵀ·B. L is zero above the diagonal,
-            # so the two l x l products count the l(l+1)/2 causal pairs only
-            flops = b * nc * (l * (l + 1.0) * n + h * (l * (l + 1.0) * p + 4.0 * l * p * n))
+            # x and y, b and c in x's dtype, a and the final state in float32; the causal
+            # pairs of the two l x l products only
+            c = kssd.cost(meta((b, s_len, h, p), dt), meta((b, s_len, h), torch.float32),
+                          meta((b, s_len, n), dt), meta((b, s_len, n), dt), chunk=chunk)
             # y and the final state, held together: float32 to tests/test_kernels.py:116-117's
             # 1e-3, bf16 (y rounded to bf16) to 3e-2
             record(e_ssd, dtn == "bfloat16" and what == "mamba2", "ssd",
-                   f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make, nbytes,
-                   flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
+                   f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make, c.bytes,
+                   c.flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
     rows.append(e_ssd)
     return rows
 
@@ -2124,6 +2140,174 @@ def phase_sharded(torch, card: str):
     return counts
 
 
+def dryrun_grid(card: str) -> None:
+    """(a) ``python -m repro_torch.launch.dryrun --arch all --shape all --mesh
+    DRYRUN_MESH`` as a child process (one worker a core): no cell fails, the
+    skipped cells are exactly those ``config.shapes.applicability`` skips; one line a
+    cell with its bottleneck, counted FLOPs over ``model_flops`` and peak bytes a
+    device beside the card's HBM."""
+    import os
+    import tempfile
+
+    from repro_torch.config.parallel import H100_SXM
+    from repro_torch.config.shapes import SHAPE_ORDER, SHAPES, applicability
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.dryrun import MESHES
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dryrun-", dir=ROOT / "build") as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape", "all",
+               "--mesh", DRYRUN_MESH, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+        summary = [line for line in proc.stdout.splitlines() if line.startswith("dry-run done")]
+        log(f"[dryrun] (a) {' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s (host), "
+            f"{summary[-1] if summary else 'no summary'}")
+        kinds = ["single", "multi"] if DRYRUN_MESH == "both" else [DRYRUN_MESH]
+        bad = []
+        for kind in kinds:
+            mesh_name = MESHES[kind][0]
+            for arch in ARCH_IDS:
+                for shape in SHAPE_ORDER:
+                    tag = f"{arch}_{shape}_{mesh_name}".replace(".", "p")
+                    path = Path(out) / f"{tag}.json"
+                    cell = json.loads(path.read_text()) if path.exists() else {"error": "missing"}
+                    want_skip = applicability(get_config(arch), SHAPES[shape])
+                    if "error" in cell or bool(want_skip) != ("skipped" in cell):
+                        bad.append(f"{tag}: {cell.get('error', cell.get('skipped', 'ran'))}")
+                        continue
+                    if "skipped" in cell:
+                        log(f"[dryrun] SKIP {tag}")
+                        continue
+                    r, mem = cell["roofline"], cell["memory"]
+                    log(f"[dryrun] OK   {tag}: bottleneck {r['bottleneck']}, step "
+                        f"{r['step_time_s']:.4e} s, flops/model_flops "
+                        f"{cell['counted_over_model_flops']:.4f}, peak "
+                        f"{mem['peak_bytes_per_device'] / 1e9:.3f} GB a device of "
+                        f"{H100_SXM.hbm_bytes / 1e9:.0f} GB")
+    if proc.returncode != 0 or bad:
+        tail = "\n".join(proc.stdout.splitlines()[-20:] + proc.stderr.splitlines()[-20:])
+        raise AssertionError(f"dry-run grid: exit {proc.returncode}, cells wrong: {bad}\n{tail}")
+
+
+def dryrun_tie(torch, mesh, card: str):
+    """(b) Phase 8(a)'s granite-8b prefill of ``SHARDED_PROMPTS`` prompts in a
+    ``SERVE_CACHE`` cache and one decode step after it, counted twice: on ``meta``
+    tensors through ``launch.dryrun.run_cell`` and live on the card under the same
+    ``CostCounter``; FLOPs, bytes and per-kernel calls must be equal. Each step's
+    roofline on ``H100_SXM`` beside its CUDA-event time, plain and through DTensor;
+    a measured step faster than its roofline fails. Returns the live run's counts."""
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_counter import CostCounter
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import build_serve_steps, jit_serve_steps
+    from repro_torch.sharding.rules import place, place_tree
+
+    cfg = get_config(SHARDED_ARCH)
+    shapes = {"prefill": ShapeConfig("prefill_1k", SERVE_CACHE, SHARDED_PROMPTS, "prefill"),
+              "decode": ShapeConfig("decode_1k", SERVE_CACHE, SHARDED_PROMPTS, "decode")}
+    cells = {k: dryrun.run_cell(cfg.name, s, mesh, "card_1x1", cfg=cfg) for k, s in shapes.items()}
+
+    api = build(cfg, device="cuda")
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(8)
+    lens = rng.integers(64, 513, size=SHARDED_PROMPTS)
+    tokens = torch.zeros((SHARDED_PROMPTS, SERVE_CACHE), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+    tokens, plens = tokens.cuda(), torch.tensor(lens, dtype=torch.int32, device="cuda")
+    plan = dryrun.default_plan(shapes["decode"], mesh)
+    prefill, decode, (psh, _, tsh) = jit_serve_steps(api, plan, mesh, SHARDED_PROMPTS, SERVE_CACHE)
+    dparams, dtokens, dplens = place_tree(params, psh), place(tokens, tsh), place(plens, tsh)
+    first = lambda logits: place(torch.argmax(logits, dim=-1).to(torch.int32), tsh)
+    with torch.no_grad():   # warm-up: cuBLAS handles, DTensor's sharding propagation cache
+        logits, cache = prefill(dparams, dtokens, dplens)
+        decode(dparams, cache, first(logits))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with CostCounter() as live_prefill:
+            logits, cache = prefill(dparams, dtokens, dplens)
+        tok = first(logits)
+        with CostCounter() as live_decode:
+            decode(dparams, cache, tok)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    expected = {"rmsnorm": 2 * (2 * L + 1), "flash_attention": L, "decode_attention": L,
+                "moe_gmm": 0, "ssd": 0}
+    ok = counts == expected
+    for kind, live in (("prefill", live_prefill.costs()), ("decode", live_decode.costs())):
+        meta = cells[kind]["cost_corrected"]
+        calls = {k: v["calls"] for k, v in meta["kernels"].items()}
+        same = (meta["flops"] == live.flops and meta["hbm_bytes"] == live.hbm_bytes
+                and calls == {k: v[0] for k, v in live.kernels.items()})
+        ok = ok and same
+        log(f"[dryrun] (b) {kind} {cfg.name} x{SHARDED_PROMPTS} in a {SERVE_CACHE} cache, (1, 1) "
+            f"mesh: meta {meta['flops']:.6e} FLOPs {meta['hbm_bytes']:.6e} bytes {calls}; live "
+            f"{live.flops:.6e} FLOPs {live.hbm_bytes:.6e} bytes "
+            f"{ {k: v[0] for k, v in live.kernels.items()} }: {'equal' if same else 'DIFFER'}")
+    log(f"[dryrun] (b) launches {counts} (expected {expected})")
+
+    plain = build_serve_steps(api)
+    timed = {}
+    for mode, pf, dc, p, tk, pl, ctx in (
+            ("plain", plain.prefill, plain.decode, params, tokens, plens, torch.inference_mode),
+            ("DTensor", prefill, decode, dparams, dtokens, dplens, torch.no_grad)):
+        pre, dec = [], []
+        with ctx():
+            for _ in range(DRYRUN_REPEATS):
+                (logits, cache), ms, _ = _event_ms(torch, lambda: pf(p, tk, pl))
+                pre.append(ms)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                tok = place(tok, tsh) if mode == "DTensor" else tok
+                _, ms, _ = _event_ms(torch, lambda: dc(p, cache, tok))
+                dec.append(ms)
+        timed[mode] = {"prefill": _median(pre), "decode": _median(dec)}
+    for kind in ("prefill", "decode"):
+        r = cells[kind]["roofline"]
+        roof_ms = 1e3 * r["step_time_s"]
+        for mode in ("plain", "DTensor"):
+            ms = timed[mode][kind]
+            ok = ok and ms >= roof_ms
+            log(f"[dryrun] (b) {kind} step {mode}: {ms:.3f} ms (CUDA events, median of "
+                f"{DRYRUN_REPEATS}) against its H100_SXM roofline {roof_ms:.3f} ms "
+                f"({r['bottleneck']}), {ms / roof_ms:.2f}x {'ok' if ms >= roof_ms else 'FAIL'} "
+                f"on {card}")
+    if not ok:
+        raise AssertionError(f"dry-run tie: counts or times disagree (launches {counts})")
+    del params, dparams, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dryrun(torch, card: str):
+    """Phase 9: (a) the dry-run's grid as a child process, (b) its count of granite-8b's
+    serve steps held against the same count live on the card, on a (1, 1) NCCL mesh
+    (a world of one, torn down at the end). Returns (b)'s launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    dryrun_grid(card)
+    log(f"[dryrun] (a) {time.perf_counter() - t0:.1f} s")
+    started = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    try:
+        counts = dryrun_tie(torch, mesh, card)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    return [counts]
+
+
 def main() -> int:
     try:
         import torch
@@ -2161,7 +2345,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_reference(torch)
     for run in (phase_train(torch, timer) + phase_launch(torch, card, timings)
-                + phase_sharded(torch, card)):
+                + phase_sharded(torch, card) + phase_dryrun(torch, card)):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     for k in kernels:

@@ -144,6 +144,18 @@ class ModelConfig:
             total += self.d_model * self.d_model   # the stub patch projection
         return total
 
+    def num_active_params(self) -> int:
+        """Active parameters per token (MoE: only the router and the top-k experts count)."""
+        if self.family != "moe":
+            return self.num_params()
+        embed = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        active_ffn = (self.d_model * self.num_experts
+                      + self.experts_per_token * 3 * self.d_model * self.d_ff
+                      + 3 * self.d_model * self.shared_expert_d_ff)
+        block = self._attn_params() + active_ffn + 2 * self.d_model
+        return self.num_layers * block + embed + head + self.d_model
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

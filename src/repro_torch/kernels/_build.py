@@ -22,7 +22,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -147,6 +147,13 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+class Cost(NamedTuple):
+    """The work of one kernel call: operations and bytes (each input read once, each
+    output written once), the inputs of its bound and of ``launch.hlo_counter``."""
+    flops: float
+    bytes: float
 
 
 def check(err: int, what: str) -> None:

@@ -6,7 +6,8 @@ and the caches share a dtype, or q is float32 against a bf16 cache (a
 float32 model's batched decode: the cache is bf16 as in the reference).
 ``decode_attention`` launches the kernel on CUDA tensors and raises on
 anything else; ``plain`` is the PyTorch version the CPU path and the tests
-use.
+use. On ``meta`` tensors ``decode_attention`` returns an empty output of the
+kernel's shape (the dry-run); ``cost`` is the work of one call.
 
 The kernel splits the KV axis (flash-decoding): ``split_plan`` cuts the S
 slots into splits, one block per (KV head x up to ``ROWS_PER_BLOCK`` query
@@ -25,7 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.attention import decode_attention as plain
 
-__all__ = ["decode_attention", "plain", "split_plan", "round_slots", "split_reference", "launches",
+__all__ = ["decode_attention", "plain", "cost", "split_plan", "round_slots", "split_reference", "launches",
            "MAX_HEAD_DIM", "MAX_SPLIT_SLOTS", "ROWS_PER_BLOCK", "SPLIT_ALIGN"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
@@ -107,12 +108,33 @@ def split_reference(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     return out.reshape(b, hq, dh).to(k_cache.dtype)
 
 
+def cost(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, slot_pos: torch.Tensor,
+         cur_pos: torch.Tensor, *, valid: Optional[int] = None, rows_without: int = 0
+         ) -> _build.Cost:
+    """K and V read at the valid slots, a row without one reading V's S slots (its
+    output is their mean), q read and the output written once, slot_pos and cur_pos
+    read; QKᵀ and PV at 4·dh operations a valid slot and query head.
+
+    ``valid`` (the (row, slot) pairs the masks allow) and ``rows_without`` depend on
+    the data; left out, every slot of the cache counts, which is all a shape says
+    (``launch.hlo_counter`` counts so, on ``meta`` tensors and on the card alike)."""
+    b, hq, dh = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    valid = b * s if valid is None else valid
+    csize = k_cache.element_size()
+    nbytes = ((2 * valid + s * rows_without) * hkv * dh * csize
+              + b * hq * dh * (q.element_size() + csize) + (b * s + b) * 4)
+    return _build.Cost(4.0 * hq * dh * valid + hkv * dh * s * rows_without, float(nbytes))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      slot_pos: torch.Tensor, cur_pos: torch.Tensor, *, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Hq, dh]; caches [B, S, Hkv, dh] of q's dtype, or bf16 under a float32 q;
     slot_pos [B, S] and cur_pos [B] int32 -> [B, Hq, dh] in the caches' dtype."""
     global launches
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=k_cache.dtype, device="meta")
     _build.check_inputs("decode_attention", q.device, q=q, k_cache=k_cache, v_cache=v_cache,
                         slot_pos=slot_pos, cur_pos=cur_pos)
     entry = _ENTRY.get((q.dtype, k_cache.dtype))

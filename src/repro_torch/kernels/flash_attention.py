@@ -6,7 +6,8 @@ an online softmax, causal and sliding-window masks. ``window`` is a runtime
 int (<= 0 means full attention). ``flash_attention`` launches a kernel on
 CUDA tensors and raises on anything else; ``plain`` (the chunked online
 softmax the JAX model runs) is the PyTorch version the CPU path and the
-tests use.
+tests use. On ``meta`` tensors ``flash_attention`` returns an empty output of
+the kernel's shape (the dry-run); ``cost`` is the work of one call.
 
 The source holds two kernels, and ``kernel_for`` picks one by (dtype,
 head_dim): bf16 at head_dim 64 or 128, the shapes of every served model,
@@ -14,21 +15,23 @@ runs on the tensor cores (``wgmma``, any GQA group size); float32, and bf16 at
 other head dims, run on the CUDA cores (at most ``MAX_GROUP`` query heads per
 KV head).
 
-``FlashAttentionFunction`` is the kernel under autograd: its forward launches
-``flash_attention``, its backward is ``flash_attention_backward``, the
-gradient formula in torch ops (the reference has no backward kernel: XLA
-differentiates its ``chunked_attention``).
+``FlashAttentionFunction`` is the kernel under autograd: its forward is
+``flash_attention`` (``plain`` on CPU tensors), its backward is
+``flash_attention_backward``, the gradient formula in torch ops (the
+reference has no backward kernel: XLA differentiates its
+``chunked_attention``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF, chunked_attention as plain
 
-__all__ = ["flash_attention", "plain", "kernel_for", "launches", "MAX_GROUP", "MAX_HEAD_DIM",
+__all__ = ["flash_attention", "plain", "cost", "allowed_pairs", "kernel_for", "launches", "MAX_GROUP", "MAX_HEAD_DIM",
            "WGMMA_HEAD_DIMS", "flash_attention_backward", "FlashAttentionFunction"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
@@ -51,10 +54,31 @@ def kernel_for(dtype: torch.dtype, dh: int) -> str:
     return _WGMMA if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS else _ENTRY[dtype]
 
 
+def allowed_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) position pairs the masks allow: key j <= query i when causal, and
+    i - j < window when ``window`` > 0, positions from 0 as in ``plain``."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full_like(i, sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+         window: int = 0) -> _build.Cost:
+    """QKᵀ and PV on the allowed pairs (4·dh operations a pair and query head); q, k,
+    v and the output read or written once."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    flops = 4.0 * b * hq * dh * allowed_pairs(sq, sk, causal, window)
+    return _build.Cost(flops, float((2 * sq * hq + 2 * sk * hkv) * b * dh * q.element_size()))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int = 0, scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Sq, Hq, dh]; k, v [B, Sk, Hkv, dh] of q's dtype -> [B, Sq, Hq, dh]."""
     global launches
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     _build.check_inputs("flash_attention", q.device, q=q, k=k, v=v)
     _build.require(q.dtype in _ENTRY, f"flash_attention: dtype {q.dtype} not supported")
     _build.require(k.dtype == q.dtype and v.dtype == q.dtype,
@@ -157,11 +181,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention`` (the kernel) forward, ``flash_attention_backward`` backward."""
+    """``flash_attention`` (the kernel; ``plain`` on the CPU) forward,
+    ``flash_attention_backward`` backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        run = plain if q.device.type == "cpu" else flash_attention
+        o = run(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.mask = (causal, window, scale)
         return o

@@ -8,7 +8,8 @@ non-zero (the routed assignments, at most the capacity): the rows past it are
 neither read nor multiplied and come back as zero, and an expert with no live
 row reads no weight. ``moe_gmm`` launches a kernel on CUDA tensors and raises
 on anything else; ``plain`` is the PyTorch version the CPU path and the tests
-use.
+use. On ``meta`` tensors ``moe_gmm`` returns an empty output of the kernel's
+shape (the dry-run); ``cost`` is the work of one call.
 
 ``kernel_for`` picks the kernel by dtype: bf16 runs on the tensor cores
 (``wgmma``, the rows of a block cut by ``tile_plan``), float32 on the CUDA
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["moe_gmm", "plain", "live_rows", "kernel_for", "tile_plan", "launches",
+__all__ = ["moe_gmm", "plain", "cost", "live_rows", "kernel_for", "tile_plan", "launches",
            "BLOCK_COLS", "MAX_BLOCK_ROWS"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
@@ -69,10 +70,28 @@ def plain(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor] = Non
     return torch.einsum("ecd,edf->ecf", x, we.float()).to(xe.dtype)
 
 
+def cost(xe: torch.Tensor, we: torch.Tensor, *, rows: Optional[int] = None,
+         experts: Optional[int] = None) -> _build.Cost:
+    """2·D·F operations a live row; the live rows of xe and the weights of the experts
+    with a live row read once, every output row written once.
+
+    ``rows`` (live rows over all experts) and ``experts`` (experts with one) depend
+    on the routing; left out, every row and expert counts, which is all a shape says
+    (``launch.hlo_counter`` counts so, on ``meta`` tensors and on the card alike)."""
+    e, r, d = xe.shape
+    f = we.shape[2]
+    rows = e * r if rows is None else rows
+    experts = e if experts is None else experts
+    return _build.Cost(2.0 * rows * d * f, float((rows * d + experts * d * f + e * r * f)
+                                                 * xe.element_size()))
+
+
 def moe_gmm(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xe [E, R, D], we [E, D, F] of xe's dtype, live int32 [E, G] with G | R or None
     -> [E, R, F] in xe's dtype."""
     global launches
+    if xe.device.type == "meta":
+        return torch.empty((xe.shape[0], xe.shape[1], we.shape[2]), dtype=xe.dtype, device="meta")
     _build.check_inputs("moe_gmm", xe.device, xe=xe, we=we,
                         **({} if live is None else {"live": live}))
     _build.require(xe.dtype in _ENTRY, f"moe_gmm: dtype {xe.dtype} not supported")

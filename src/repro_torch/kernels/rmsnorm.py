@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.kernels.rmsnorm``. ``rmsnorm`` launches the kernel on
 CUDA tensors and raises on anything else; ``plain`` is the PyTorch version
-the CPU path and the tests use. ``RMSNormFunction`` is the kernel under
-autograd: its forward launches ``rmsnorm``, its backward is
+the CPU path and the tests use; on a ``meta`` tensor ``rmsnorm`` returns an
+empty output of the kernel's shape (the dry-run), and ``cost`` is the work of
+one call. ``RMSNormFunction`` is the kernel under
+autograd: its forward is ``rmsnorm`` (``plain`` on a CPU tensor), its backward is
 ``rmsnorm_backward``, the gradient formula in torch ops (the reference has
 no backward kernel: XLA differentiates its jnp norm).
 """
@@ -16,16 +18,24 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import rms_norm as plain
 
-__all__ = ["rmsnorm", "plain", "rmsnorm_backward", "RMSNormFunction", "launches"]
+__all__ = ["rmsnorm", "plain", "cost", "rmsnorm_backward", "RMSNormFunction", "launches"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
 
 _ENTRY = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 
 
+def cost(x: torch.Tensor, scale: torch.Tensor) -> _build.Cost:
+    """x and the output read and written once, the scale once; 4 operations an element."""
+    numel = x.numel()
+    return _build.Cost(4.0 * numel, float((2 * numel + scale.numel()) * x.element_size()))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x [..., D], scale [D] of x's dtype -> [..., D] in x's dtype."""
     global launches
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     _build.check_inputs("rmsnorm", x.device, x=x, scale=scale)
     _build.require(x.dtype in _ENTRY, f"rmsnorm: dtype {x.dtype} not supported")
     _build.require(scale.dtype == x.dtype, "rmsnorm: scale must have x's dtype")
@@ -60,13 +70,13 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """``rmsnorm`` (the kernel) forward, ``rmsnorm_backward`` backward."""
+    """``rmsnorm`` (the kernel; ``plain`` on the CPU) forward, ``rmsnorm_backward`` backward."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return rmsnorm(x, scale, eps)
+        return plain(x, scale, eps) if x.device.type == "cpu" else rmsnorm(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -7,7 +7,8 @@ that defines the semantics, for the tests). x [B, S, H, P] is dt-weighted,
 a [B, S, H] is the float32 log decay, b and c [B, S, N] are shared across
 heads. ``ssd`` launches the kernel on CUDA tensors and raises on anything
 else; like the Pallas kernel it takes no initial state and needs S to be a
-multiple of ``min(chunk, S)``.
+multiple of ``min(chunk, S)``. On ``meta`` tensors ``ssd`` returns empty
+outputs of the kernel's shapes (the dry-run); ``cost`` is the work of one call.
 
 The kernel is chunk-parallel: a chunk pass writes every chunk's state
 contribution and C·Bᵀ, a state pass carries the states across chunks, and an
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ssd", "plain", "sequential", "chunked_reference", "workspaces", "launches",
+__all__ = ["ssd", "plain", "cost", "sequential", "chunked_reference", "workspaces", "launches",
            "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
@@ -133,11 +134,31 @@ def chunked_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torc
     return (y_diag + y_off).reshape(bsz, s, h, p).to(x.dtype), state
 
 
+def cost(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+         chunk: int) -> _build.Cost:
+    """C·Bᵀ once a chunk (shared by the heads), then per (head, chunk) the three
+    l·P-sized products (L ⊙ C·Bᵀ)·X, C·hᵀ and Xᵀ·B, the two l x l products on the
+    l(l+1)/2 causal pairs only; x, y, b and c in x's dtype and a and the final
+    state in float32 read or written once."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    l = min(chunk, s)
+    nc = s // l
+    flops = bsz * nc * (l * (l + 1.0) * n + h * (l * (l + 1.0) * p + 4.0 * l * p * n))
+    nbytes = (2 * bsz * s * h * p + 2 * bsz * s * n) * x.element_size() + (bsz * s * h
+                                                                             + bsz * h * p * n) * 4
+    return _build.Cost(flops, float(nbytes))
+
+
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
         chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, H, P]; a [B, S, H] float32; b, c [B, S, N] of x's dtype ->
     (y [B, S, H, P] in x's dtype, final state [B, H, P, N] float32)."""
     global launches
+    if x.device.type == "meta":
+        return (torch.empty_like(x),
+                torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]), dtype=torch.float32,
+                            device="meta"))
     _build.check_inputs("ssd", x.device, x=x, a=a, b=b, c=c)
     _build.require(x.dtype in _ENTRY, f"ssd: dtype {x.dtype} not supported")
     _build.require(a.dtype == torch.float32, "ssd: a must be float32")

@@ -8,17 +8,76 @@ its compile-time proxy; the port has no HLO, and counts the operator calls
 of a ``torch.export`` program instead (``count_graph_ops``), the artifact
 the snapshot cold-start backend builds (``core/coldstart.py``).
 
-The collective half of the reference's module (``parse_collectives``,
-``CollectiveStats``) reads the collectives of an SPMD-partitioned HLO
-module. Its counterpart counts the collectives of the sharded steps
-(``serving.engine.jit_serve_steps``, ``training.train_step.jit_train_step``)
-on ``launch.mesh.make_production_mesh``, where ``torch.distributed``'s
-``CommDebugMode`` takes the place of the HLO; it is not ported yet.
+The collective half of the reference's module reads the collectives of an
+SPMD-partitioned HLO module. Its counterpart, ``parse_collectives`` and
+``CollectiveStats``, takes the collectives that ``launch.hlo_counter``'s
+``CostCounter`` saw a step run (the sharded steps on
+``launch.mesh.make_production_mesh`` in the dry-run) and accounts their
+bytes with the reference's per-device link model (ring schedules):
+
+    all-reduce        2 x output bytes x (g-1)/g
+    all-gather        1 x output bytes x (g-1)/g
+    reduce-scatter    1 x operand bytes x (g-1)/g
+    all-to-all        1 x operand bytes
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+
+@dataclass
+class CollectiveStats:
+    counts: Dict[str, int] = field(default_factory=dict)
+    operand_bytes: Dict[str, float] = field(default_factory=dict)
+    output_bytes: Dict[str, float] = field(default_factory=dict)
+    link_bytes: Dict[str, float] = field(default_factory=dict)
+    group_sizes: Dict[str, List[int]] = field(default_factory=dict)
+
+    @property
+    def total_operand_bytes(self) -> float:
+        return sum(self.operand_bytes.values())
+
+    @property
+    def total_link_bytes(self) -> float:
+        return sum(self.link_bytes.values())
+
+    def to_json(self) -> dict:
+        return {
+            "counts": self.counts,
+            "operand_bytes": self.operand_bytes,
+            "output_bytes": self.output_bytes,
+            "link_bytes": self.link_bytes,
+            "total_operand_bytes": self.total_operand_bytes,
+            "total_link_bytes": self.total_link_bytes,
+        }
+
+
+def parse_collectives(events: Sequence, num_devices: int = 1) -> CollectiveStats:
+    """Account the bytes of a step's collectives: ``events`` as
+    ``hlo_counter.CostCounter`` records them (``op``, ``operand_bytes``,
+    ``output_bytes``, ``group_size``); a group size of 0 or None is taken as all
+    ``num_devices``, as the reference takes a collective without replica groups."""
+    from repro_torch.launch.hlo_counter import link_bytes
+
+    stats = CollectiveStats()
+    for ev in events:
+        base, ob, out_b = ev.op, float(ev.operand_bytes), float(ev.output_bytes)
+        gs = ev.group_size or num_devices
+        stats.counts[base] = stats.counts.get(base, 0) + 1
+        stats.operand_bytes[base] = stats.operand_bytes.get(base, 0.0) + ob
+        stats.output_bytes[base] = stats.output_bytes.get(base, 0.0) + out_b
+        stats.group_sizes.setdefault(base, []).append(gs)
+        stats.link_bytes[base] = stats.link_bytes.get(base, 0.0) + link_bytes(base, ob, out_b, gs)
+    return stats
+
+
+def merge_events(events: Sequence, num_devices: int = 1) -> Dict[str, List[float]]:
+    """base op -> [count, operand_bytes, output_bytes, link_bytes], the form of
+    ``CorrectedCosts.collectives``."""
+    stats = parse_collectives(events, num_devices)
+    return {k: [float(stats.counts[k]), stats.operand_bytes[k], stats.output_bytes[k],
+                stats.link_bytes[k]] for k in stats.counts}
 
 
 @dataclass

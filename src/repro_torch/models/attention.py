@@ -180,7 +180,8 @@ def _write_shard(cache: DTensor, new, pos, s: int, ring: bool) -> None:
     """``cache_write_decode`` of one cache leaf ([B, S, ...]) on this rank's shard:
     ``new`` [B, ...] (the leaf's dims without S) and ``pos`` [B] are first placed
     as the cache's batch and trailing dims are; only the rows whose slot lies in
-    the local span of S are written."""
+    the local span of S are written. No shape depends on the data: a row whose
+    slot lies elsewhere writes back the value at its slot clamped into the span."""
     mesh = cache.device_mesh
     to_new = lambda p: (p if p == Shard(0) else Shard(p.dim - 1) if isinstance(p, Shard)
                         and p.dim >= 2 else Replicate())
@@ -194,7 +195,10 @@ def _write_shard(cache: DTensor, new, pos, s: int, ring: bool) -> None:
     slot = (pos_l % s if ring else torch.clamp(pos_l, max=s - 1)).long() - s_off
     bidx = torch.arange(pos_l.shape[0], device=pos_l.device)
     local = cache.to_local()
+    new_l = new_l.to(local.dtype)
     if s_n < s:   # S is sharded: only the rows whose slot is here
         mine = (slot >= 0) & (slot < s_n)
-        bidx, slot, new_l = bidx[mine], slot[mine], new_l[mine]
-    local[bidx, slot] = new_l.to(local.dtype)
+        slot = slot.clamp(0, s_n - 1)
+        mine = mine.reshape(mine.shape + (1,) * (new_l.dim() - 1))
+        new_l = torch.where(mine, new_l, local[bidx, slot])
+    local[bidx, slot] = new_l

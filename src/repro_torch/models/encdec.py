@@ -30,6 +30,7 @@ from repro_torch.models.attention import cache_write_decode
 from repro_torch.models.common import ParamSpec, empty_tree
 from repro_torch.models.layers import (chunked_softmax_xent, default_loss_chunk, embed_tokens,
                                       gelu_mlp, layer_norm, sinusoidal_positions)
+from repro_torch.sharding.constraints import grad_placed, merge_heads, reduce_partial, split_heads
 
 
 # ---------------------------------------------------------------------------
@@ -88,19 +89,19 @@ def _mlp(x, p):
 
 
 def _heads(x, cfg: ModelConfig):
-    return x.reshape(*x.shape[:-1], cfg.num_heads, cfg.resolved_head_dim)
+    return split_heads(x, cfg.num_heads, cfg.resolved_head_dim)
 
 
 def _q(x, ap, cfg: ModelConfig):
-    return _heads(x @ ap["wq"] + ap["bq"], cfg)
+    return _heads(reduce_partial(x @ ap["wq"]) + ap["bq"], cfg)
 
 
 def _kv(src, ap, cfg: ModelConfig):
-    return _heads(src @ ap["wk"], cfg), _heads(src @ ap["wv"] + ap["bv"], cfg)
+    return _heads(src @ ap["wk"], cfg), _heads(reduce_partial(src @ ap["wv"]) + ap["bv"], cfg)
 
 
 def _out(o, ap):
-    return o.reshape(*o.shape[:-2], -1) @ ap["wo"] + ap["bo"]
+    return reduce_partial(merge_heads(o) @ ap["wo"]) + ap["bo"]
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -143,7 +144,7 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *, rema
     h, _ = _decoder_full(params, batch["tokens"], encode(params, batch["frames"], cfg), cfg)
     if loss_chunk <= 0:
         loss_chunk = default_loss_chunk(cfg.vocab_size, h.shape[1])
-    return chunked_softmax_xent(h, params["embed"].T, batch["targets"], batch.get("mask"),
+    return chunked_softmax_xent(h, grad_placed(params["embed"]).T, batch["targets"], batch.get("mask"),
                                 loss_chunk)
 
 

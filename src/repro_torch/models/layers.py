@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.constraints import shard_act, take_last, take_rows
+from repro_torch.sharding.constraints import reduce_partial, shard_act, take_last, take_rows
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -46,7 +46,8 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
              b_out: torch.Tensor) -> torch.Tensor:
     """Whisper's MLP: out( gelu_tanh(x @ w_in + b_in) ) + b_out."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    h = F.gelu(reduce_partial(x @ w_in) + b_in, approximate="tanh")
+    return reduce_partial(h @ w_out) + b_out
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

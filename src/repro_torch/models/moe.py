@@ -38,6 +38,13 @@ from repro_torch.models.layers import swiglu
 from repro_torch.sharding.constraints import unshard
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` in ``dtype``, as one comparison: ``F.one_hot`` takes
+    other ATen ops on ``meta`` tensors than on the CPU and the card, and the
+    dry-run's counts would differ."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def param_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     t = {
@@ -72,7 +79,7 @@ def _route(x: torch.Tensor, router: torch.Tensor, k: int):
     top_w, top_i = torch.topk(probs, k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(dim=-1, keepdim=True), min=1e-9)
     e = router.shape[1]
-    density = F.one_hot(top_i, e).float().sum(dim=-2).mean(dim=-2)  # [..., E]
+    density = one_hot(top_i, e, torch.float32).sum(dim=-2).mean(dim=-2)  # [..., E]
     aux = e * (density * probs.mean(dim=-2)).sum(dim=-1)
     return top_i, top_w, aux
 
@@ -89,9 +96,13 @@ def _groups_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], counts: torch.Tens
     """xe [G, E, C, D] -> [G, E, C, D]: one expert FFN over all groups' rows; ``counts``
     [G, E] the assignments routed to each expert of each group (kept or not)."""
     g, e, c, d = xe.shape
-    rows = xe.transpose(0, 1).reshape(e, g * c, d).contiguous()
+    # contiguous before the reshape: on an expert-sharded DTensor under autograd, DTensor
+    # takes the reshape for a view that the local shard's strides do not allow
+    rows = xe.transpose(0, 1).contiguous().reshape(e, g * c, d)
     live = counts.clamp(max=c).transpose(0, 1).to(torch.int32).contiguous()  # [E, G]
-    return _expert_ffn(rows, p, live).reshape(e, g, c, d).transpose(0, 1)
+    # [E, G*C, D] -> [G, E, C, D] without a reshape of a transposed gradient (the same
+    # fault of DTensor under autograd)
+    return torch.stack(_expert_ffn(rows, p, live).split(c, dim=1))
 
 
 def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
@@ -100,7 +111,7 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
     e, k = cfg.num_experts, cfg.experts_per_token
     idx, w, aux = _route(x, p["router"], k)
 
-    onehot_e = F.one_hot(idx, e).to(torch.int32)                      # [G, T, k, E]
+    onehot_e = one_hot(idx, e, torch.int32)                            # [G, T, k, E]
     # rank of each (token, choice) within its expert: exclusive cumsum, token-major.
     # The scan runs along the last dim ([G, E, T*k]): on CUDA a scan over an
     # outer dim with E = 64 columns took ~1.5 ms per layer at T = 1024.
@@ -137,7 +148,7 @@ def _moe_sort(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se, sw = flat_e.gather(1, order), w.reshape(g, t * k).gather(1, order)
     stok = order // k                                                 # token of each assignment
-    counts = F.one_hot(flat_e, e).sum(dim=1)                          # [G, E]
+    counts = one_hot(flat_e, e, torch.int64).sum(dim=1)               # [G, E]
     starts = torch.cumsum(counts, dim=-1) - counts
     rank = torch.arange(t * k, device=x.device) - starts.gather(1, se)
     keep = rank < cap

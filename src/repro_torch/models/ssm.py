@@ -19,6 +19,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import promote
 from repro_torch.models.common import ParamSpec, resolve_device
+from repro_torch.sharding.constraints import merge_heads
 
 
 def param_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -110,7 +111,7 @@ def apply_ssm(x_in: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
                        chunk=cfg.ssm_chunk)
     y = y[:, :s]
     y = y + (p["D"][:, None] * xs.float()).to(y.dtype)
-    y = _gated_norm(y.reshape(bsz, s, d_in), z, p, cfg)
+    y = _gated_norm(merge_heads(y), z, p, cfg)
     out = y @ p["out_proj"]
 
     # per-row trailing window: raw conv inputs at plen-(wc-1) .. plen-1, zeros before 0
@@ -147,7 +148,7 @@ def apply_ssm_decode(x_in: torch.Tensor, state: SSMState, p: Dict[str, torch.Ten
     h_new = state.h * decay[..., None, None] + torch.einsum("bhp,bn->bhpn", dx, b_mat)
     y = torch.einsum("bhpn,bn->bhp", h_new, c_mat)
     y = y + p["D"][:, None] * xs.float()
-    y = _gated_norm(y.reshape(-1, d_in).to(x_in.dtype), z, p, cfg)
+    y = _gated_norm(merge_heads(y).to(x_in.dtype), z, p, cfg)
     out = y @ p["out_proj"]
 
     conv_buf = torch.cat(promote(state.conv_buf[:, 1:], xbc_raw[:, None]), dim=1)

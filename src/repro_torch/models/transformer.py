@@ -36,7 +36,7 @@ from repro_torch.models.attention import cache_write_decode, promote
 from repro_torch.models.common import ParamSpec, empty_tree, tree_map
 from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, default_loss_chunk,
                                       embed_tokens, swiglu)
-from repro_torch.sharding.constraints import shard_act
+from repro_torch.sharding.constraints import grad_placed, merge_heads, shard_act, split_heads
 
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
 # (``cache_spec`` leaves carry no dtype and ``empty_cache`` defaults to bf16).
@@ -105,7 +105,9 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def lm_head_weight(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The LM head; a tied one is the embedding's transpose, whose gradient is placed
+    as the embedding is before it joins the lookup's (``grad_placed``)."""
+    return grad_placed(params["embed"]).T if cfg.tie_embeddings else params["lm_head"]
 
 
 def layer_slice(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -122,8 +124,8 @@ def _qkv(x, ap, cfg: ModelConfig):
     q, k, v = x @ ap["wq"], x @ ap["wk"], x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q, k, v = (q.reshape(*lead, cfg.num_heads, dh), k.reshape(*lead, cfg.num_kv_heads, dh),
-               v.reshape(*lead, cfg.num_kv_heads, dh))
+    q, k, v = (split_heads(q, cfg.num_heads, dh), split_heads(k, cfg.num_kv_heads, dh),
+               split_heads(v, cfg.num_kv_heads, dh))
     kind = "bshd" if len(lead) == 2 else "bhd"   # full sequence / decode
     return tuple(shard_act(t, kind) for t in (q, k, v))
 
@@ -136,7 +138,7 @@ def attn_full(x, ap, cfg: ModelConfig, *, window: int = 0):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=True, window=window)
-    return out.reshape(bsz, s, -1) @ ap["wo"], k, v
+    return merge_heads(out) @ ap["wo"], k, v
 
 
 def attn_decode(x, ap, cfg: ModelConfig, kc, vc, sp, pos, *, window: int = 0, ring: bool = False):
@@ -147,7 +149,7 @@ def attn_decode(x, ap, cfg: ModelConfig, kc, vc, sp, pos, *, window: int = 0, ri
     cache_write_decode(kc, vc, sp, k, v, pos, ring=ring)
     out = ops.decode_attention(q, kc, vc, sp, pos, window=window)
     # a bf16 cache under f32 weights gives a bf16 output; jnp promotes it
-    out, wo = promote(out.reshape(out.shape[0], -1), ap["wo"])
+    out, wo = promote(merge_heads(out), ap["wo"])
     return out @ wo
 
 

@@ -27,7 +27,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.config.parallel import ParallelPlan
 from repro_torch.models.model import ModelApi
 from repro_torch.sharding.rules import (batch_sharding, cache_shardings, param_shardings, place,
-                                        place_tree)
+                                        place_tree, step_mesh)
 
 
 class ServeSteps(NamedTuple):
@@ -53,7 +53,9 @@ def build_serve_steps(api: ModelApi) -> ServeSteps:
 
 
 def serve_shardings(api: ModelApi, plan: ParallelPlan, mesh, batch: int, cache_len: int):
-    """(param_shardings, cache_shardings, token_sharding), by the serve rules."""
+    """(param_shardings, cache_shardings, token_sharding), by the serve rules, on
+    ``sharding.rules.step_mesh``'s mesh."""
+    mesh, plan = step_mesh(mesh, plan, (batch,))
     psh = param_shardings(api.param_template, mesh, plan, kind="serve")
     csh = cache_shardings(api.cache_spec(batch, cache_len), mesh, plan)
     tsh = batch_sharding(plan, mesh, batch)

@@ -13,6 +13,11 @@ so the unsharded model runs unchanged. The model calls it where the
 reference does: ``layers.swiglu``, ``layers._xent_chunk``,
 ``transformer._qkv`` and ``transformer.block_full``.
 
+``split_heads``, ``merge_heads`` and ``reduce_partial`` work around limits
+of DTensor that XLA's partitioner does not have: an uneven unflatten of
+heads (forward or backward), and a sharded bias added to a ``Partial``
+product.
+
 ``local_span``, ``take_rows`` and ``take_last`` are helpers of the model's
 own code on shards: an embedding lookup and a gather along the vocabulary
 run on local shards, as the plain path runs them, where DTensor's own
@@ -116,6 +121,76 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
                                                 for p in x.placements))
 
 
+def split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``x`` [..., heads * head_dim] -> [..., heads, head_dim].
+
+    A DTensor whose last dim is sharded over mesh dimensions whose product does
+    not divide ``heads`` is first replicated along it (an all-gather over those
+    dimensions): DTensor cannot unflatten a dim unevenly, where XLA's partitioner
+    can (granite-8b's 8 KV heads on a 16-way model axis)."""
+    if isinstance(x, DTensor):
+        last = x.dim() - 1
+        ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                         if p == Shard(last))
+        if heads % ways:
+            x = unshard(x, last)
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., heads, head_dim] -> [..., heads * head_dim].
+
+    A DTensor whose last two dims are not sharded is reshaped on its local
+    shard, so its gradient comes back placed as ``x`` is: DTensor would
+    otherwise unflatten a gradient sharded over more ways than there are heads
+    (hymba-1.5b's 25 heads on a 16-way model axis, in a training step)."""
+    if isinstance(x, DTensor) and not any(isinstance(p, Shard) and p.dim >= x.dim() - 2
+                                          for p in x.placements) \
+            and not any(isinstance(p, Partial) for p in x.placements):
+        local = x.to_local()
+        return DTensor.from_local(local.reshape(*local.shape[:-2], -1), x.device_mesh,
+                                  x.placements, run_check=False)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity; its backward places the gradient as the input is placed (a
+    ``Partial`` input's gradient replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_placed(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient under autograd is redistributed to ``x``'s own
+    placements where it arrives (a ``Partial`` sum reduced), before it meets
+    another: torch 2.11's DTensor cannot add a ``Partial`` gradient to a sharded
+    one ("redistribute from S(1) to P(sum)": hymba-1.5b's tied embedding in
+    ``train_4k``)."""
+    if isinstance(x, DTensor) and x.requires_grad and torch.is_grad_enabled():
+        return _GradPlaced.apply(x)
+    return x
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every ``Partial`` placement summed to ``Replicate()`` (an
+    all-reduce), or as it is. Before a bias add: torch 2.11's DTensor cannot add a
+    sharded bias to a ``Partial`` product ("redistribute from S(0) to P(sum) not
+    supported yet"; whisper-base smoke on a (2, 2) mesh)."""
+    if not isinstance(x, DTensor) or not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(Replicate() if isinstance(p, Partial) else p
+                                                for p in x.placements))
+
+
 def local_span(t: DTensor, dim: int):
     """(offset, length) of this rank's shard of ``t`` along ``dim``; mesh
     dimensions that shard one tensor dim split it outermost first, as
@@ -161,31 +236,39 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     On a DTensor table the lookup runs on local shards: a mesh dimension that
     shards the rows (vocab) gives each rank the indices in its span and 0 for
-    the others (a ``Partial`` sum), one that shards the columns gives the
-    output's last dim sharded, and one that replicates the table keeps the
-    indices' sharding. The local op is the plain path's ``table[idx]``, so its
-    gradient is too. (torch 2.11's DTensor fails on the gradient of
-    ``table[idx]`` with batch-sharded indices: "Shard dim -1 ... must be
-    normalized".)"""
+    the others (a ``Partial`` sum); one that shards the columns gives the
+    output's last dim sharded if the indices are replicated there, and is
+    gathered (ZeRO-3's all-gather of the table) if they are sharded, so that the
+    lookup keeps the batch's sharding; one that replicates the table keeps the
+    indices' sharding. Where the table is whole and the indices sharded, each
+    rank's gradient of the table is its batch's share: a ``Partial`` sum. The
+    local op is the plain path's ``table[idx]``, so its gradient is too. (torch
+    2.11's DTensor fails on the gradient of ``table[idx]`` with batch-sharded
+    indices: "Shard dim -1 ... must be normalized".)"""
     if not isinstance(table, DTensor):
         return table[idx]
     mesh = table.device_mesh
     idx = idx if isinstance(idx, DTensor) else DTensor.from_local(
         idx, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-    idx_pl, out_pl = [], []
+    table_pl, grad_pl, idx_pl, out_pl = [], [], [], []
     for pt, pi in zip(table.placements, idx.placements):
         if pt == Shard(0):
+            table_pl.append(pt)
             idx_pl.append(Replicate())
             out_pl.append(Partial())
-        elif pt == Shard(1):
+        elif pt == Shard(1) and not isinstance(pi, Shard):
+            table_pl.append(pt)
             idx_pl.append(Replicate())
             out_pl.append(Shard(idx.dim()))
         else:
             keep = isinstance(pi, Shard)
+            table_pl.append(Replicate())
             idx_pl.append(pi if keep else Replicate())
             out_pl.append(pi if keep else Replicate())
-    tl = table.redistribute(mesh, tuple(p if isinstance(p, Shard) else Replicate()
-                                        for p in table.placements)).to_local()
+        grad_pl.append(Partial() if table_pl[-1] == Replicate() and idx_pl[-1] != Replicate()
+                       else table_pl[-1])
+    tl = grad_placed(table).redistribute(mesh, tuple(table_pl)).to_local(
+        grad_placements=tuple(grad_pl))
     il = idx.redistribute(mesh, tuple(idx_pl)).to_local()
     if Shard(0) in table.placements:
         off, n = local_span(table, 0)

@@ -21,6 +21,10 @@ The fallback-to-replication rule is what makes e.g. GQA caches with
 kv_heads=8 on a 16-way model axis work: the ``cache_seq`` dim (which is
 always a large power of two) takes the model axis instead.
 
+``step_mesh`` runs a sharded step on a (pod, data, model) mesh on its view
+that merges pod and data into one axis of the same devices, where that places
+every tensor alike (see there).
+
 A spec is a plain tuple with the entries of the reference's
 ``PartitionSpec``: per tensor dim, ``None`` (replicated), one mesh axis name,
 or a tuple of names; trailing ``None``s stripped. ``placements`` turns it
@@ -34,11 +38,14 @@ sizes on one CPU.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 from repro_torch.config.parallel import ParallelPlan
@@ -198,6 +205,60 @@ def tree_batch_shardings(abstract_batch, plan: ParallelPlan, mesh):
 
 def replicated(mesh) -> MeshSharding:
     return _sharding(mesh, (), 0)
+
+
+def _batch_shards(plan: ParallelPlan, mesh, batch_size: int) -> int:
+    sizes = mesh_axes(mesh)
+    return math.prod(sizes[a] for e in batch_spec(plan, mesh, batch_size)
+                     for a in (e if isinstance(e, tuple) else (e,)))
+
+
+def _pod_with_data(axes: Sequence[str]) -> bool:
+    """``axes`` name neither "pod" nor "data", or "pod" right before "data"."""
+    axes = tuple(axes)
+    if "pod" not in axes and "data" not in axes:
+        return True
+    return "pod" in axes and axes[axes.index("pod") + 1:axes.index("pod") + 2] == ("data",)
+
+
+_VIEWS: Dict[int, Tuple[Any, Any]] = {}   # id(mesh) -> (mesh, its view)
+
+
+def step_mesh(mesh, plan: ParallelPlan, batch_sizes: Sequence[int] = ()):
+    """(mesh, plan) that a sharded step runs on.
+
+    DTensor plans each redistribution of a dim sharded over two mesh axes by a
+    graph search (torch 2.13: 53 s for one matmul's sharding on the 2 x 16 x 16
+    mesh), and fails some views of such dims ("_StridedShard"). So a mesh with
+    "pod" right before "data" is replaced by its view that merges the two into
+    one "data" axis of the same devices, and "pod" is dropped from the plan,
+    where that places every tensor alike: each axis tuple a rule reads (data,
+    fsdp, tensor and expert axes; no rule reads ``seq_axes``) names "pod" only
+    right before "data", and each of ``batch_sizes`` splits into as many shards
+    on both (``batch_spec`` sheds trailing axes, so a batch that divides pod but
+    not pod x data is sharded over pod alone on the mesh). A collective over
+    both axes then runs over one group, as the reference's replica groups do.
+    Otherwise (mesh, plan) are returned as they are."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if not isinstance(mesh, DeviceMesh) or not _pod_with_data(names) or "pod" not in names:
+        return mesh, plan
+    i = names.index("pod")
+    view_names = names[:i] + names[i + 1:]
+    view_plan = plan.restrict_to(view_names)
+    sizes = mesh_axes(mesh)
+    view_sizes = {a: sizes[a] * (sizes["pod"] if a == "data" else 1) for a in view_names}
+    stub = SimpleNamespace(axis_names=view_names, shape=view_sizes)
+    axes = (plan.data_axes, plan.fsdp_axes, plan.tensor_axes, plan.expert_axes)
+    if not all(map(_pod_with_data, axes)) or any(
+            _batch_shards(plan, mesh, b) != _batch_shards(view_plan, stub, b) for b in batch_sizes):
+        return mesh, plan
+    if id(mesh) not in _VIEWS:
+        shape = tuple(mesh.mesh.shape)
+        view = DeviceMesh(mesh.device_type,
+                          mesh.mesh.reshape(shape[:i] + (shape[i] * shape[i + 1],) + shape[i + 2:]),
+                          mesh_dim_names=view_names)
+        _VIEWS[id(mesh)] = (mesh, view)
+    return _VIEWS[id(mesh)][1], view_plan
 
 
 def place(x: torch.Tensor, sharding: MeshSharding) -> DTensor:

@@ -73,8 +73,9 @@ def make_train_state_specs(api: ModelApi, plan: ParallelPlan, mesh) -> Tuple[Tra
     ``TrainState`` of ``sharding.rules.MeshSharding`` leaves on ``mesh``. The
     moments and the residual inherit the parameters' placements; ``step`` is
     replicated."""
-    from repro_torch.sharding.rules import param_shardings, replicated
+    from repro_torch.sharding.rules import param_shardings, replicated, step_mesh
 
+    mesh, plan = step_mesh(mesh, plan)
     abstract = abstract_train_state(api, plan)
     pshard = param_shardings(api.param_template, mesh, plan, kind="train")
     placements = TrainState(
@@ -156,10 +157,13 @@ def place_state(state: TrainState, shardings: TrainState) -> TrainState:
 
 def jit_train_step(api: ModelApi, plan: ParallelPlan, mesh, abstract_batch, **kw):
     """(fn, abstract_state, state_shardings, batch_shardings): ``fn(state, batch) ->
-    (state, metrics)`` on ``mesh``, with ``build_train_step``'s keywords ``kw``.
-    ``abstract_batch`` is the batch's tree (any tensors of its shapes)."""
-    from repro_torch.sharding.rules import place, place_tree, replicated, tree_batch_shardings
+    (state, metrics)`` on ``mesh`` (``sharding.rules.step_mesh``'s), with
+    ``build_train_step``'s keywords ``kw``. ``abstract_batch`` is the batch's tree
+    (any tensors of its shapes)."""
+    from repro_torch.sharding.rules import (place, place_tree, replicated, step_mesh,
+                                            tree_batch_shardings)
 
+    mesh, plan = step_mesh(mesh, plan, [x.shape[0] for _, x in tree_items(abstract_batch)])
     step = build_train_step(api, plan, **kw)
     abstract, state_sh = make_train_state_specs(api, plan, mesh)
     batch_sh = tree_batch_shardings(abstract_batch, plan, mesh)

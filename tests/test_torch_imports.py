@@ -51,3 +51,5 @@ def test_port_imports_with_jax_blocked():
                           env=env, cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "repro_torch.kernels.ops" in modules and "repro_torch" in modules
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.hlo_counter",
+            "repro_torch.launch.hlo_analysis"} <= set(modules)

@@ -8,7 +8,8 @@ causal, windowed and non-causal with Sq != Sk, GQA groups of 1, 4 and 16.
 The ``autograd.Function``s wired through the model under every remat
 policy, with the kernel launch swapped for the plain version (the launch
 runs only on the card: ``chip_smoke.py`` phase 6); and ``decode_attention``,
-``moe_gmm`` and ``ssd`` refusing autograd rather than dropping a gradient.
+``moe_gmm`` and ``ssd`` refusing autograd on CUDA rather than dropping a
+gradient, and every kernel's gradient on ``meta`` tensors (the dry-run).
 Inputs come from numpy seeds; everything runs on the CPU.
 """
 import numpy as np
@@ -200,34 +201,52 @@ def test_kernel_functions_carry_the_model_gradient(arch, remat, functions_on_cpu
     assert calls == want
 
 
-def _meta(*shape, dtype=torch.float32, grad=True):
-    return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
+def _meta(*shape, dtype=torch.float32, grad=True, device="meta"):
+    return torch.empty(shape, dtype=dtype, device=device, requires_grad=grad)
 
 
-KERNEL_CALLS = {   # each kernel's entry point on non-CPU tensors that require grad
-    "rmsnorm": lambda: ops.rmsnorm(_meta(2, 8), _meta(8)),
-    "flash_attention": lambda: ops.flash_attention(*(_meta(1, 4, 2, 8) for _ in range(3))),
-    "decode_attention": lambda: ops.decode_attention(
-        _meta(2, 4, 8), _meta(2, 16, 2, 8), _meta(2, 16, 2, 8),
-        _meta(2, 16, dtype=torch.int32, grad=False), _meta(2, dtype=torch.int32, grad=False)),
-    "moe_gmm": lambda: ops.moe_gmm(_meta(4, 8, 16), _meta(4, 16, 8)),
-    "ssd": lambda: ops.ssd(_meta(1, 16, 2, 8), _meta(1, 16, 2), _meta(1, 16, 4), _meta(1, 16, 4),
-                           chunk=8),
+KERNEL_CALLS = {   # each kernel's entry point on tensors of a device that require grad
+    "rmsnorm": lambda dev: ops.rmsnorm(_meta(2, 8, device=dev), _meta(8, device=dev)),
+    "flash_attention": lambda dev: ops.flash_attention(*(_meta(1, 4, 2, 8, device=dev)
+                                                         for _ in range(3))),
+    "decode_attention": lambda dev: ops.decode_attention(
+        _meta(2, 4, 8, device=dev), _meta(2, 16, 2, 8, device=dev),
+        _meta(2, 16, 2, 8, device=dev), _meta(2, 16, dtype=torch.int32, grad=False, device=dev),
+        _meta(2, dtype=torch.int32, grad=False, device=dev)),
+    "moe_gmm": lambda dev: ops.moe_gmm(_meta(4, 8, 16, device=dev), _meta(4, 16, 8, device=dev)),
+    "ssd": lambda dev: ops.ssd(_meta(1, 16, 2, 8, device=dev), _meta(1, 16, 2, device=dev),
+                               _meta(1, 16, 4, device=dev), _meta(1, 16, 4, device=dev), chunk=8),
 }
+FUNCTIONS = {"rmsnorm": "RMSNormFunctionBackward",
+             "flash_attention": "FlashAttentionFunctionBackward"}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
 def test_no_kernel_drops_a_gradient_silently(name):
-    """Off the CPU under autograd, ``rmsnorm`` and ``flash_attention`` go to their
-    ``autograd.Function`` (whose forward is the kernel: it refuses a meta tensor as
-    it refuses any non-CUDA one), and the three kernels without a backward raise
-    ``NotImplementedError`` naming themselves. Without grad each goes to its kernel."""
+    """Under autograd ``rmsnorm`` and ``flash_attention`` go to their
+    ``autograd.Function`` (whose forward is the kernel; on ``meta`` tensors, the
+    dry-run's, its route that returns empty outputs; on the CPU its plain version),
+    and the three kernels without a backward raise ``NotImplementedError`` naming
+    themselves on a CUDA tensor (a fake one: the tests run without a card) and take
+    their plain version on ``meta`` tensors: every output carries a gradient, the
+    same on the CPU as on ``meta``. Without grad each goes to its kernel, which on
+    ``meta`` tensors launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     call = KERNEL_CALLS[name]
-    if name in ("rmsnorm", "flash_attention"):
-        with pytest.raises(ValueError, match=f"{name}: the kernel takes CUDA tensors"):
-            call()
+    out, on_cpu = (o[0] if isinstance(o, tuple) else o for o in (call("meta"), call("cpu")))
+    assert out.requires_grad and out.grad_fn is not None
+    assert type(on_cpu.grad_fn).__name__ == type(out.grad_fn).__name__
+    if name in FUNCTIONS:
+        assert type(out.grad_fn).__name__ == FUNCTIONS[name]
     else:
-        with pytest.raises(NotImplementedError, match=f"^{name}: the CUDA kernel has no backward"):
-            call()
-    with torch.no_grad(), pytest.raises(ValueError, match=f"{name}: the kernel takes CUDA tensors"):
-        call()
+        assert type(out.grad_fn).__name__ not in FUNCTIONS.values()
+        with FakeTensorMode(), pytest.raises(NotImplementedError,
+                                             match=f"^{name}: the CUDA kernel has no backward"):
+            call("cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = call("meta")
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "meta" and out.grad_fn is None
+    assert ops.launch_counts()[name] == 0

@@ -10,7 +10,8 @@ rank saves what it gathered. The tests compare in this process:
 
   * ``jit_serve_steps`` (granite dense, olmoe MoE, whisper encdec with
     ``frames``, mamba2 SSM through ``ssd``'s route) on (2, 1), (1, 2) and
-    (2, 2), granite on (2, 2) also inside ``activation_constraints``: a
+    (2, 2), granite on (2, 2) also inside ``activation_constraints``, and
+    granite on (1, 4), a model axis larger than its 2 KV heads: a
     prefill and 4 decode steps give ``build_serve_steps``'s logits within
     the float32 ``_tol`` and its tokens wherever the top-2 logit gap exceeds it;
   * ``jit_train_step`` (granite, olmoe) on (2, 1) with ZeRO-3 and on (1, 2):
@@ -48,6 +49,8 @@ TOL = F32_TOL["atol"]
 SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "whisper-base", "mamba2-130m")
 SERVE_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 CONSTRAINED = {(2, 2): ("granite-8b",)}   # serve cases also run inside activation_constraints
+# serve cases on a model axis larger than the smoke config's 2 KV heads
+FEW_KV_HEADS = {(1, 4): ("granite-8b",)}
 TRAIN_ARCHS = ("granite-8b", "olmoe-1b-7b")
 TRAIN_MESHES = {2: ((2, 1), (1, 2))}
 B, S, DECODE_STEPS, TRAIN_STEPS = 4, 16, 4, 2
@@ -184,6 +187,15 @@ def _rank_main(rank, world, tmp):
                 api = build(_f32_smoke(arch), device="cpu")
                 out[("constrained", arch, shape)] = _serve_case(
                     api, inputs["params"][arch], inputs, mesh, plan, constrained=True)
+        for shape, archs in FEW_KV_HEADS.items():
+            if math.prod(shape) != world:
+                continue
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+            plan = ParallelPlan().restrict_to(("data", "model"))
+            for arch in archs:
+                api = build(_f32_smoke(arch), device="cpu")
+                out[("serve", arch, shape)] = _serve_case(api, inputs["params"][arch], inputs,
+                                                          mesh, plan)
     for shape in TRAIN_MESHES.get(world, ()):
         mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
         plan = ParallelPlan(remat="none", zero3=True).restrict_to(("data", "model"))
@@ -275,7 +287,9 @@ def _unsharded_serve(arch, inputs):
 SERVE_CASES = ([(w, shape, arch, "serve") for w, shapes in SERVE_MESHES.items()
                 for shape in shapes for arch in SERVE_ARCHS]
                + [(math.prod(shape), shape, arch, "constrained")
-                  for shape, archs in CONSTRAINED.items() for arch in archs])
+                  for shape, archs in CONSTRAINED.items() for arch in archs]
+               + [(math.prod(shape), shape, arch, "serve")
+                  for shape, archs in FEW_KV_HEADS.items() for arch in archs])
 
 
 @pytest.mark.parametrize("world,shape,arch,kind", SERVE_CASES,
