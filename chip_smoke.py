@@ -15,7 +15,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      top-8), and whisper-base's non-causal
      encoder and cross-attention, causal decoder self-attention, partly filled
      self cache and all-valid cross cache), in bf16 and f32, with kernel, plain and library device
-     times (``Timer``) and the card's bound for the same work;
+     times (``Timer``) and the card's bound for the same work; and the two backward
+     kernels against their plain formulas at the training micro-batch's shapes
+     (``moe_gmm``'s at olmoe-1b-7b's and qwen3-moe's, with NaN past ``live``;
+     ``ssd``'s at mamba2-130m's and hymba-1.5b's), with ``torch.bmm``'s two
+     products as ``moe_gmm``'s library;
   3. serving, once per model: granite-8b, glm4-9b, qwen2.5-32b, deepseek-67b
      (dense; deepseek cut to 44 of 95 layers), olmoe-1b-7b (MoE), mamba2-130m
      (SSM), hymba-1.5b (hybrid, cache 2048 so that its sliding layers hold a
@@ -55,16 +59,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      node against the eager payload, ``sdk.verify`` listing ``generate`` as
      unsafe, and ``trace_capture``'s CUDA-event step calibration at batches 1,
      2 and 4;
-  6. train: (a) the ``autograd.Function`` of rmsnorm and of flash attention
-     (the kernel forward, the gradient formula backward) against autograd of
-     the plain version, at granite-8b's training shapes and whisper-base's
-     cross-attention, bf16 and f32, with forward+backward device times; (b)
-     ``train_loss`` and every leaf's gradient of granite-8b (full width, 2
-     layers) and whisper-base on the card in float32 and bf16 against the
-     CPU's float32, and olmoe-1b-7b and mamba2-130m refusing autograd (their
-     kernels have no backward); (c) granite-8b at full width cut to 16 layers
-     (its training state in 60 GB) trained for 10 steps at seq 4096, global
-     batch 8 in 4 micro-batches, remat "full", with exact launch counts; (d)
+  6. train: (a) the ``autograd.Function`` of rmsnorm, flash attention, moe_gmm
+     and ssd (the kernel forward; the gradient formula backward, or for moe_gmm
+     and ssd the backward kernel) against autograd of the plain version, at
+     granite-8b's, olmoe-1b-7b's and mamba2-130m's training shapes and
+     whisper-base's cross-attention, bf16 and f32, with forward+backward device
+     times; (b) ``train_loss`` and every leaf's gradient of granite-8b,
+     olmoe-1b-7b, mamba2-130m and hymba-1.5b (full width, 2 layers: hymba's
+     layer 0 global, layer 1 sliding) and whisper-base on the card in float32
+     and bf16 against the CPU's float32 (olmoe's bf16 run routes near-ties to
+     other experts: its share is reported and its gradients held in float32
+     only); (c) granite-8b at full width cut to 16 layers and olmoe-1b-7b cut
+     by the same rule (the training state in 60 GB), mamba2-130m and
+     hymba-1.5b whole, trained at seq 4096, global batch 8 in 4 micro-batches,
+     remat "full", with exact launch counts (the backward kernels' too); (d)
      ``python -m repro_torch.training.train_lm``'s composition on
      ``sdk.Platform`` (lm-100m), crashed at step 20 and resumed, under
      deterministic algorithms: its losses equal an uninterrupted run's, and
@@ -75,7 +83,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batcher's run directly, exact launch counts; (b) ``launch.train``'s ``run``
      on whisper-base at full width (seq 448, batch 8), 30 steps straight, then 20
      and a restart to 30 from the checkpoint, under deterministic algorithms: the
-     restarted losses equal the straight run's bitwise, exact flash counts; (c)
+     restarted losses equal the straight run's bitwise, exact flash counts, and
+     the same on mamba2-130m at full width (seq 1024, batch 8: the ssd backward
+     kernel's reductions run in a fixed order); (c)
      ``apps.inference_service`` for granite-8b priced on ``H100_SXM`` beside phase
      5's measured decode steps, none of which may beat its roofline term.
      ``launch.train`` runs on a (1, 1) mesh through ``jit_train_step``.
@@ -164,8 +174,23 @@ TRAIN_RMS_SHAPE = (2, 4096, 4096)
 TRAIN_FLASH_CASES = (("granite", 2, 4096, 4096, 32, 8, 128, True),
                      ("whisper cross", 1, 448, 1500, 8, 8, 64, False))
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
-TRAIN_ARCH, TRAIN_BUDGET_BYTES, TRAIN_BYTES_PER_PARAM = "granite-8b", 60e9, 16
-TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 4, 10, 1e-3
+TRAIN_BUDGET_BYTES, TRAIN_BYTES_PER_PARAM = 60e9, 16
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_LR = 8, 4, 1e-3
+# (c) each model and its steps: granite-8b as before, then the MoE, SSM and hybrid families
+TRAIN_RUNS = (("granite-8b", 10), ("olmoe-1b-7b", 5), ("mamba2-130m", 5), ("hymba-1.5b", 5))
+# (b) each model's layers (None: whole) and sequence, batch 2
+TRAIN_REFERENCE = (("granite-8b", 2, 512), ("whisper-base", None, 384), ("olmoe-1b-7b", 2, 512),
+                   ("mamba2-130m", 2, 512), ("hymba-1.5b", 2, 512))
+# the backward kernels at the training micro-batch's shapes (TRAIN_4K's seq 4096, batch
+# 8 / 4 = 2): moe_gmm's products, (what, E, rows, D, F, groups): olmoe-1b-7b's 2 x 4096
+# tokens in 8 groups of 1024 at capacity 160 (top-8 of 64), qwen3-moe-235b-a22b's at
+# capacity 80 (top-8 of 128); ssd's scans, (what, B, S, H, P, N, chunk)
+TRAIN_GMM_CASES = (("olmoe gate/up", 64, 1280, 2048, 1024, 8),
+                   ("olmoe down", 64, 1280, 1024, 2048, 8),
+                   ("qwen3-moe gate/up", 128, 640, 4096, 1536, 8))
+TRAIN_SSD_CASES = (("mamba2", 2, 4096, 24, 64, 128, 128), ("hymba", 2, 4096, 50, 64, 16, 128))
+# the backward kernels' counters, 0 in every run that trains nothing
+NO_BACKWARD = {"moe_gmm_backward": 0, "ssd_backward": 0}
 TRAIN_LM_STEPS = 40
 # phase 7 (launch): the CLIs' run() at full width; whisper-base is the one trainable
 # family whose full depth and width train on one card (70.7 M parameters, ~1.1 GB of
@@ -177,6 +202,9 @@ LAUNCH_SERVE_ARCHS = ("granite-8b", "whisper-base")
 LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS = "whisper-base", (20, 30)
 LAUNCH_TRAIN_FLAGS = ("--seq", "448", "--batch", "8", "--remat", "full", "--ckpt-every", "10",
                       "--lr", "1e-2")
+# ... and mamba2-130m (the ssd backward kernel), whole, at a shorter sequence
+LAUNCH_TRAIN_SSM = ("mamba2-130m", (10, 15), ("--seq", "1024", "--batch", "8", "--remat", "full",
+                                              "--ckpt-every", "5", "--lr", "1e-2"))
 # phase 8 (sharded): the sharded steps on a (1, 1) NCCL mesh against the plain steps on the
 # same weights, bitwise. (a) granite-8b whole, a prefill of 4 prompts in a 1024 cache, then
 # 16 decode steps; (b) ZeRO-3 training of granite-8b at full width cut to 4 of 36 layers,
@@ -676,7 +704,79 @@ def phase_kernels(torch, timer: Timer):
                    f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make, c.bytes,
                    c.flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
     rows.append(e_ssd)
+    rows += backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged)
     return rows
+
+
+def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
+    """Phase 2's rows of the two backward kernels, each against its plain formula at the
+    training micro-batch's shapes (``TRAIN_GMM_CASES``, ``TRAIN_SSD_CASES``) and at ragged
+    ones, bf16 and float32. moe_gmm's inputs hold NaN in the rows past ``live`` (the
+    kernel must not read them, and its dxe there must be exactly zero); the library is
+    ``torch.bmm``'s two products dout·weᵀ and xeᵀ·dout over every row. ssd's dy is drawn
+    like x, its final state's gradient absent (as in ``train_loss``) and, at the
+    ragged shapes, present."""
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ssd as kssd
+
+    e_gmm = dict(name="moe_gmm_backward", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+                 replaces="src/repro/kernels/moe_gmm.py:42")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for what, e, r, d, f, groups in TRAIN_GMM_CASES + (("ragged, 2 groups", 8, 40, 100, 72, 2),):
+            live = live_ragged if what.startswith("ragged") else routed(1024, e, r // groups, groups)
+            mask = kgmm.live_rows(live, r)[..., None]
+
+            zero_past_live = []   # the first input set's dxe past live: exactly zero?
+
+            def make(e=e, r=r, d=d, f=f, dt=dt, live=live, mask=mask, out=zero_past_live):
+                nan, zero = (torch.tensor(v, device="cuda", dtype=dt) for v in (float("nan"), 0.0))
+                xe, g = (torch.where(mask, rnd(shape, dt), nan) for shape in ((e, r, d), (e, r, f)))
+                we = rnd((e, d, f), dt) * d**-0.5
+                xz, gz = (torch.where(mask, t, zero) for t in (xe, g))
+                if not out:
+                    dxe = kgmm.backward(xe, we, live, g)[0]
+                    out.append(not bool((dxe[~mask.expand_as(dxe)] != 0).any()))
+                return (lambda: kgmm.backward(xe, we, live, g), lambda: kgmm.plain_backward(xe, we, live, g),
+                        lambda: (torch.bmm(gz, we.transpose(1, 2)), torch.bmm(xz.transpose(1, 2), gz)))
+
+            n_rows, n_exp = int(mask.sum()), int(mask.any(dim=1).sum())
+            cost = kgmm.backward_cost(meta((e, r, d), dt), meta((e, d, f), dt), rows=n_rows,
+                                      experts=n_exp)
+            case = (f"{what} xe[{e},{r},{d}] we[{e},{d},{f}] dout[{e},{r},{f}] live_rows={n_rows} "
+                    f"live_experts={n_exp}")
+            record(e_gmm, dtn == "bfloat16" and what == "olmoe gate/up", "moe_gmm backward", case,
+                   make, cost.bytes, cost.flops, dtn, dtn)
+            if not zero_past_live[0]:
+                raise AssertionError(f"moe_gmm backward {case} {dtn}: dxe is not zero past live")
+        torch.cuda.empty_cache()
+
+    e_ssd = dict(name="ssd_backward", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+                 replaces="src/repro/kernels/ssd_scan.py:91")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for what, b, s_len, h, p, n, chunk in TRAIN_SSD_CASES + (("test", 2, 96, 2, 8, 4, 16),
+                                                                 ("test", 1, 32, 2, 5, 7, 64)):
+            for with_dhf in (False, True) if what == "test" else (False,):
+                def make(b=b, s_len=s_len, h=h, p=p, n=n, chunk=chunk, dt=dt, with_dhf=with_dhf):
+                    x = (rnd((b, s_len, h, p), torch.float32) * 0.5).to(dt)
+                    a = -(rnd((b, s_len, h), torch.float32) * 0.3).abs()
+                    bm = (rnd((b, s_len, n), torch.float32) * 0.5).to(dt)
+                    cm = (rnd((b, s_len, n), torch.float32) * 0.5).to(dt)
+                    dy = rnd((b, s_len, h, p), dt)
+                    dhf = rnd((b, h, p, n), torch.float32) * 0.5 if with_dhf else None
+                    _, hf, ws = kssd.forward_with_workspaces(x, a, bm, cm, chunk)
+                    return (lambda: kssd.backward(x, a, bm, cm, dy, dhf, *ws, hf, chunk=chunk),
+                            lambda: kssd.plain_backward(x, a, bm, cm, dy, dhf, chunk), None)
+
+                c = kssd.backward_cost(meta((b, s_len, h, p), dt), meta((b, s_len, h), torch.float32),
+                                       meta((b, s_len, n), dt), meta((b, s_len, n), dt), chunk=chunk,
+                                       dhf=with_dhf)
+                # dx, da, db and dc held together; the products are float32 on the CUDA cores
+                record(e_ssd, dtn == "bfloat16" and what == "mamba2", "ssd backward",
+                       f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk} "
+                       f"dhf={'yes' if with_dhf else 'none'}", make, c.bytes, c.flops, dtn,
+                       "float32")
+        torch.cuda.empty_cache()
+    return [e_gmm, e_ssd]
 
 
 def expected_launches(cfg, prefills: int, steps: int):
@@ -684,13 +784,13 @@ def expected_launches(cfg, prefills: int, steps: int):
     L = cfg.num_layers
     if cfg.family == "encdec":   # LayerNorms in plain torch; self- and cross-attention per layer
         return {"rmsnorm": 0, "flash_attention": (cfg.encoder_layers + 2 * L) * prefills,
-                "decode_attention": 2 * L * steps, "moe_gmm": 0, "ssd": 0}
+                "decode_attention": 2 * L * steps, "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
     attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
     return {"rmsnorm": (NORMS_PER_LAYER[cfg.family] * L + 1) * (prefills + steps),
             "flash_attention": L * prefills if attn else 0,
             "decode_attention": L * steps if attn else 0,
             "moe_gmm": 3 * L * (prefills + steps) if cfg.family == "moe" else 0,
-            "ssd": L * prefills if ssm else 0}
+            "ssd": L * prefills if ssm else 0, **NO_BACKWARD}
 
 
 def request_extras(torch, cfg, n: int, seed: int, device="cuda", dtype=None):
@@ -846,7 +946,9 @@ def moe_layer_times(torch, timer: Timer, cfg, params):
 
 # (group, the kernel (ops name) it belongs to, substrings of its device kernels' names);
 # the first group whose substring a kernel's name holds takes it
-KERNEL_GROUPS = (("rmsnorm kernel", "rmsnorm", ("rmsnorm_kernel",)),
+KERNEL_GROUPS = (("moe_gmm backward kernel", "moe_gmm_backward", ("gmm_bwd_",)),
+                 ("ssd backward kernel", "ssd_backward", ("ssd_bwd_",)),
+                 ("rmsnorm kernel", "rmsnorm", ("rmsnorm_kernel",)),
                  ("flash kernel", "flash_attention", ("flash_kernel",)),
                  ("decode kernel", "decode_attention", ("decode_kernel",)),
                  ("moe_gmm kernel", "moe_gmm", ("gmm_wgmma_kernel", "gmm_f32_kernel")),
@@ -887,18 +989,22 @@ def profile_breakdown(torch, what: str, reps: int, fn):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     after = card_clocks()
-    groups, launches, others = {}, {}, []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+    # the raw events, not key_averages(): that builds a tree of every CPU op, which took
+    # ~75 s for a hymba-1.5b training step (~105,000 kernels)
+    groups, launches, by_name = {}, {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        name = next((g for g, _, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
-        groups[name] = groups.get(name, 0.0) + us / 1e3 / reps
-        launches[name] = launches.get(name, 0) + ev.count / reps
+        row = by_name.setdefault(ev.name(), [0.0, 0])
+        row[0] += ev.duration_ns() / 1e6 / reps
+        row[1] += 1
+    others = []
+    for key, (ms, n) in by_name.items():
+        name = next((g for g, _, keys in KERNEL_GROUPS if any(k in key for k in keys)), "other")
+        groups[name] = groups.get(name, 0.0) + ms
+        launches[name] = launches.get(name, 0) + n / reps
         if name == "other":
-            others.append((us / 1e3 / reps, ev.count / reps, ev.key))
+            others.append((ms, n / reps, key))
     busy = sum(groups.values())
     if busy == 0.0:
         raise AssertionError(f"{what}: the profiler recorded no device kernels")
@@ -1430,14 +1536,17 @@ def phase_platform(torch, cfg, api, params):
 # phase 6: training on the card
 # ---------------------------------------------------------------------------
 def train_kernel_rows(torch, timer: Timer):
-    """(a) Each kernel's ``autograd.Function`` (the kernel forward, the gradient
-    formula backward) against ``torch.autograd`` of its plain version on the card,
-    forward and backward at the training shapes, in bf16 and float32, with device
-    times beside the bound of the same work and the library's forward+backward."""
+    """(a) Each kernel's ``autograd.Function`` (the kernel forward; the gradient
+    formula backward, or the backward kernel) against ``torch.autograd`` of its plain
+    version on the card, forward and backward at the training shapes, in bf16 and
+    float32, with device times beside the bound of the same work and the library's
+    forward+backward (``torch.bmm`` for moe_gmm; ssd has none)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import ssd as kssd
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     has_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
@@ -1452,7 +1561,7 @@ def train_kernel_rows(torch, timer: Timer):
         out = f(*inputs)
         return (out.detach(), *torch.autograd.grad(out, inputs, g))
 
-    def record(name, case, make, labels, nbytes, flops, dtn):
+    def record(name, case, make, labels, nbytes, flops, dtn, op_type=None):
         sets = [make() for _ in range(Timer.copies(nbytes))]
         kernel_fn, plain_fn, lib_fn = sets[0]
         got, want = kernel_fn(), plain_fn()
@@ -1462,7 +1571,7 @@ def train_kernel_rows(torch, timer: Timer):
         del got, want
         (k_ms, k_hb), (p_ms, p_hb) = (timer.ms([st[i] for st in sets]) for i in (0, 1))
         l_ms, l_hb = timer.ms([st[2] for st in sets]) if lib_fn is not None else (None, False)
-        b_ms, b_by = bound_ms(nbytes, flops, dtn)
+        b_ms, b_by = bound_ms(nbytes, flops, op_type or dtn)
         flag = lambda hb: " (host-bound)" * hb
         log(f"[train] {name} fwd+bwd {case} {dtn}: kernel_ms {k_ms:.5f}{flag(k_hb)} plain_ms "
             f"{p_ms:.5f}{flag(p_hb)} library_ms "
@@ -1509,6 +1618,46 @@ def train_kernel_rows(torch, timer: Timer):
                    f"{what} q[{b},{sq},{hq},{dh}] kv[{b},{sk},{hkv},{dh}] "
                    f"{'causal' if causal else 'non-causal'}", make, ("o", "dq", "dk", "dv"),
                    2 * (2 * b * sq * hq + 2 * b * sk * hkv) * dh * size, 12.0 * hq * dh * pairs, dtn)
+
+        meta = lambda shape, t=dt: torch.empty(shape, dtype=t, device="meta")
+        # moe_gmm at olmoe's gate/up, routed as training routes it (the rows past live zero)
+        what, e, r, d, f, groups = TRAIN_GMM_CASES[0]
+        logits = torch.randn((groups, 1024, e), generator=gen, device="cuda")
+        top = logits.softmax(-1).topk(8, dim=-1).indices
+        live = F.one_hot(top, e).sum(dim=(1, 2)).clamp(max=r // groups).T.to(torch.int32).contiguous()
+        mask = kgmm.live_rows(live, r)[..., None]
+
+        def make(e=e, r=r, d=d, f=f, dt=dt):
+            xe = (rnd((e, r, d), dt, grad=False) * mask).requires_grad_(True)
+            we = (rnd((e, d, f), dt, grad=False) * d**-0.5).requires_grad_(True)
+            g = rnd((e, r, f), dt, grad=False)
+            return (lambda: fwd_bwd(lambda a, b: kgmm.MoeGmmFunction.apply(a, b, live), (xe, we), g),
+                    lambda: fwd_bwd(lambda a, b: kgmm.plain(a, b, live), (xe, we), g),
+                    lambda: fwd_bwd(torch.bmm, (xe, we), g))
+
+        rows, experts = int(mask.sum()), int(mask.any(dim=1).sum())
+        fwd = kgmm.cost(meta((e, r, d)), meta((e, d, f)), rows=rows, experts=experts)
+        bwd = kgmm.backward_cost(meta((e, r, d)), meta((e, d, f)), rows=rows, experts=experts)
+        record("moe_gmm", f"{what} xe[{e},{r},{d}] we[{e},{d},{f}] live_rows={rows}", make,
+               ("out", "dxe", "dwe"), fwd.bytes + bwd.bytes, fwd.flops + bwd.flops, dtn)
+        # ssd at mamba2's scan (y only: train_loss does not read the final state)
+        what, b, s_len, h, p, n, chunk = TRAIN_SSD_CASES[0]
+
+        def make(b=b, s_len=s_len, h=h, p=p, n=n, chunk=chunk, dt=dt):
+            x = (rnd((b, s_len, h, p), torch.float32, grad=False) * 0.5).to(dt).requires_grad_(True)
+            a = (-(rnd((b, s_len, h), torch.float32, grad=False) * 0.3).abs()).requires_grad_(True)
+            bm, cm = ((rnd((b, s_len, n), torch.float32, grad=False) * 0.5).to(dt).requires_grad_(True)
+                      for _ in range(2))
+            g = rnd((b, s_len, h, p), dt, grad=False)
+            return (lambda: fwd_bwd(lambda *t: kssd.SSDFunction.apply(*t, chunk)[0], (x, a, bm, cm), g),
+                    lambda: fwd_bwd(lambda *t: kssd.plain(*t, chunk)[0], (x, a, bm, cm), g), None)
+
+        shapes = ((b, s_len, h, p), (b, s_len, h), (b, s_len, n), (b, s_len, n))
+        args = [meta(sh, torch.float32 if i == 1 else dt) for i, sh in enumerate(shapes)]
+        fwd, bwd = kssd.cost(*args, chunk=chunk), kssd.backward_cost(*args, chunk=chunk)
+        record("ssd", f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make,
+               ("y", "dx", "da", "db", "dc"), fwd.bytes + bwd.bytes, fwd.flops + bwd.flops, dtn,
+               "float32")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1524,79 +1673,109 @@ def _loss_and_grads(torch, api, params, batch, remat):
 
 
 def train_reference(torch):
-    """(b) ``train_loss`` and every leaf's gradient of granite-8b (full width, 2 layers,
-    seq 512, batch 2) and whisper-base (whole, 1500 frames, 384 tokens): the card in
+    """(b) ``train_loss`` and every leaf's gradient of each ``TRAIN_REFERENCE`` model at
+    full width (granite-8b, olmoe-1b-7b, mamba2-130m and hymba-1.5b cut to 2 layers:
+    hymba's layer 0 global, layer 1 sliding; whisper-base whole; batch 2): the card in
     float32 (TF32 off) and bf16 under remat "full", through the kernels' autograd
-    Functions, against the CPU's float32 plain run without remat, as the relative norm
-    error of each leaf. olmoe-1b-7b and mamba2-130m (2 layers) must refuse autograd,
-    naming ``moe_gmm`` and ``ssd``."""
+    Functions (the backward kernels of moe_gmm and ssd included), against the CPU's
+    float32 plain run without remat, as the relative norm error of each leaf. bf16
+    rounding moves some of olmoe's tokens to another expert (phase 4 measures that
+    share): its bf16 run reports the share of (token, layer) top-k sets routed
+    otherwise and its errors, and its gradients are held in float32, where every set
+    must match."""
     from repro_torch.config.shapes import ShapeConfig
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.model import build
     from repro_torch.training.data import make_batch, to_device
 
     _no_tf32(torch)
-    for arch, seq in (("granite-8b", 512), ("whisper-base", 384)):
+    routes = []   # per run: the sorted top-k expert ids of every _route call, in call order
+    real_route = moe._route
+
+    def recording_route(x, router, k):
+        out = real_route(x, router, k)
+        routes[-1].append(out[0].detach().sort(dim=-1).values.reshape(-1, k).cpu())
+        return out
+
+    for arch, layers, seq in TRAIN_REFERENCE:
         cfg = get_config(arch)
-        if cfg.family != "encdec":
-            cfg = cfg.replace(num_layers=2)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
         gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
         params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
         batch = make_batch(cfg, ShapeConfig("reference", seq, 2, "train"), 0)
         t0 = time.perf_counter()
-        want_loss, want = _loss_and_grads(
-            torch, cpu, cast_params(params, cpu.param_template, "cpu", torch.float32),
-            to_device(batch, "cpu", torch.float32), "none")
-        log(f"[train] {arch} {cfg.num_layers}-layer full width, batch 2 x {seq}: CPU float32 loss "
-            f"{want_loss.item():.6f} and {len(want)} gradients in {time.perf_counter() - t0:.1f} s")
-        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            loss, got = _loss_and_grads(torch, gpu, cast_params(params, gpu.param_template, "cuda", dt),
-                                        to_device(batch, "cuda", dt), "full")
-            errs = {path: ((g.float().cpu() - want[path]).norm() / want[path].norm()).item()
-                    for path, g in got.items()}
-            loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-            worst = max(errs, key=errs.get)
-            ok = max(errs.values()) <= GRAD_TOL[dtn] and loss_err <= GRAD_TOL[dtn] and all(
-                g.abs().max().item() > 0 for g in got.values())
-            log(f"[train] {arch} card {dtn} (remat full) vs CPU float32: loss {loss.item():.6f} "
-                f"(relative error {loss_err:.2e}); relative gradient norm error per leaf: max "
-                f"{errs[worst]:.2e} ({worst}), median {float(np.median(list(errs.values()))):.2e} "
-                f"over {len(errs)} leaves (need <= {GRAD_TOL[dtn]}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{arch}: gradients on the card disagree with the CPU ({dtn})")
-            del got
+        moe._route = recording_route
+        try:
+            routes.append([])
+            want_loss, want = _loss_and_grads(
+                torch, cpu, cast_params(params, cpu.param_template, "cpu", torch.float32),
+                to_device(batch, "cpu", torch.float32), "none")
+            want_routes = routes[-1]
+            log(f"[train] {arch} {cfg.num_layers}-layer full width, batch 2 x {seq}: CPU float32 "
+                f"loss {want_loss.item():.6f} and {len(want)} gradients in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                routes.append([])
+                loss, got = _loss_and_grads(torch, gpu, cast_params(params, gpu.param_template, "cuda", dt),
+                                            to_device(batch, "cuda", dt), "full")
+                errs = {path: ((g.float().cpu() - want[path]).norm() / want[path].norm()).item()
+                        for path, g in got.items()}
+                loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+                worst = max(errs, key=errs.get)
+                held, note = True, ""
+                if cfg.family == "moe":
+                    # remat "full" routes each layer twice on the card (forward, recompute)
+                    fwd = routes[-1][:len(want_routes)]
+                    differ = sum(int((g != w).any(dim=-1).sum()) for g, w in zip(fwd, want_routes))
+                    total = sum(w.shape[0] for w in want_routes)
+                    held = dtn == "float32"
+                    note = (f"; top-{cfg.experts_per_token} expert sets differing in {differ} of "
+                            f"{total} (token, layer) rows = {differ / total:.4f}"
+                            + ("" if held else " (bf16: reported, not held)"))
+                    if held and differ:
+                        raise AssertionError(f"{arch}: float32 on the card routes {differ} rows "
+                                             f"otherwise than the CPU")
+                ok = max(errs.values()) <= GRAD_TOL[dtn] and loss_err <= GRAD_TOL[dtn] and all(
+                    g.abs().max().item() > 0 for g in got.values())
+                log(f"[train] {arch} card {dtn} (remat full) vs CPU float32: loss {loss.item():.6f} "
+                    f"(relative error {loss_err:.2e}); relative gradient norm error per leaf: max "
+                    f"{errs[worst]:.2e} ({worst}), median {float(np.median(list(errs.values()))):.2e} "
+                    f"over {len(errs)} leaves (need <= {GRAD_TOL[dtn]}){note} "
+                    f"{'ok' if ok or not held else 'FAIL'}")
+                if held and not ok:
+                    raise AssertionError(f"{arch}: gradients on the card disagree with the CPU ({dtn})")
+                del got
+        finally:
+            moe._route = real_route
         del gpu, cpu, params, want
         gc.collect()
         torch.cuda.empty_cache()
 
-    for arch, kernel in (("olmoe-1b-7b", "moe_gmm"), ("mamba2-130m", "ssd")):
-        cfg = get_config(arch).replace(num_layers=2)
-        api = build(cfg, device="cuda")
-        params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
-        batch = to_device(make_batch(cfg, ShapeConfig("reference", 256, 2, "train"), 0), "cuda",
-                          torch.bfloat16)
-        try:
-            _loss_and_grads(torch, api, params, batch, "full")
-        except NotImplementedError as e:
-            ok = str(e).startswith(f"{kernel}:")
-            log(f"[train] {arch} under autograd on the card raises NotImplementedError: {e} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{arch}: the refusal does not name {kernel}") from e
-        else:
-            raise AssertionError(f"{arch}: trained on the card, but {kernel} has no backward")
-        del api, params
-        gc.collect()
-        torch.cuda.empty_cache()
+
+def train_launches(cfg, micro_batches: int):
+    """Launches per kernel of ``micro_batches`` forward+backward passes of ``cfg`` under
+    remat "full": each layer's norms and kernels forward and once more recomputed in
+    the backward, the final norm once, each backward kernel once a call."""
+    L, fam = cfg.num_layers, cfg.family
+    attn, ssm, moe = fam != "ssm", fam in ("ssm", "hybrid"), fam == "moe"
+    per = {"rmsnorm": 2 * NORMS_PER_LAYER[fam] * L + 1, "flash_attention": 2 * L if attn else 0,
+           "decode_attention": 0, "moe_gmm": 6 * L if moe else 0, "ssd": 2 * L if ssm else 0,
+           "moe_gmm_backward": 3 * L if moe else 0, "ssd_backward": L if ssm else 0}
+    return {k: micro_batches * v for k, v in per.items()}
 
 
-def train_run(torch):
-    """(c) granite-8b at full width, cut to the deepest whose training state fits
-    ``TRAIN_BUDGET_BYTES`` (``serve_depth`` of the parameters that many bytes hold): bf16, seq 4096, global
-    batch 8 in 4 micro-batches, remat "full", ``TRAIN_STEPS`` AdamW steps on one
-    repeated batch (it must overfit: the last loss below the first, every grad norm
-    finite), with exact launch counts (recompute included), then a profile of one
-    step by kernel group. Returns the counts."""
+def train_run(torch, arch: str, steps: int):
+    """(c) ``arch`` at full width, cut to the deepest whose training state fits
+    ``TRAIN_BUDGET_BYTES`` (``serve_depth`` of the parameters that many bytes hold; whole
+    where it fits): bf16, seq 4096, global batch 8 in 4 micro-batches, remat "full",
+    ``steps`` AdamW steps on one repeated batch (it must overfit: the last loss below
+    the first, every grad norm finite), with exact launch counts (recompute and the
+    backward kernels included), then a profile of one step by kernel group, in which
+    every kernel the run launched must show device time. The share of the peak counts
+    8·N·tokens with N the active parameters (an MoE model's routed experts only).
+    Returns the counts."""
     from repro_torch.config.parallel import ParallelPlan
     from repro_torch.config.shapes import TRAIN_4K
     from repro_torch.configs import get_config
@@ -1605,15 +1784,18 @@ def train_run(torch):
     from repro_torch.training.data import make_batch, to_device
     from repro_torch.training.train_step import build_train_step, init_train_state
 
-    cfg = get_config(TRAIN_ARCH)
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
     depth = serve_depth(cfg, int(TRAIN_BUDGET_BYTES // TRAIN_BYTES_PER_PARAM))
     cfg = cfg.replace(num_layers=depth)
     api = build(cfg, device="cuda")
     plan = ParallelPlan(remat="full", grad_accum=TRAIN_ACCUM)
-    n = api.param_count()
-    log(f"[train] {TRAIN_ARCH}: depth cut from {get_config(TRAIN_ARCH).num_layers} to {depth} layers, "
-        f"{n / 1e9:.3f} B params, {TRAIN_BYTES_PER_PARAM} bytes a parameter = "
-        f"{n * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB (budget {TRAIN_BUDGET_BYTES / 1e9:.0f} GB)")
+    n_all = api.param_count()
+    n = cfg.num_active_params() if cfg.family == "moe" else n_all
+    log(f"[train] {arch}: depth {depth} of {get_config(arch).num_layers} layers, "
+        f"{n_all / 1e9:.3f} B params ({n / 1e9:.3f} B active), {TRAIN_BYTES_PER_PARAM} bytes a "
+        f"parameter = {n_all * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB (budget "
+        f"{TRAIN_BUDGET_BYTES / 1e9:.0f} GB)")
     state = init_train_state(api, torch.Generator(device="cuda").manual_seed(0), plan)
     step = build_train_step(api, plan, lr=TRAIN_LR, warmup_steps=2, total_steps=100)
     batch = to_device(make_batch(cfg, TRAIN_4K, 0, batch_override=TRAIN_BATCH), "cuda",
@@ -1623,7 +1805,7 @@ def train_run(torch):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     losses, norms, times = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         losses.append(m["loss"].item())
@@ -1631,33 +1813,36 @@ def train_run(torch):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         share = 8 * n * tokens / (times[-1] * peak_flops("bfloat16"))
-        log(f"[train] step {i}: loss {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, lr "
+        log(f"[train] {arch} step {i}: loss {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, lr "
             f"{m['lr'].item():.3e}, {1e3 * times[-1]:.1f} ms, {tokens / times[-1]:.0f} tokens/s, "
             f"8·N·tokens / (time · 989 TFLOP/s) = {share:.4f}, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     counts = ops.launch_counts()
-    L = depth
-    expected = {"rmsnorm": TRAIN_STEPS * TRAIN_ACCUM * (2 * L + 1 + 2 * L),
-                "flash_attention": TRAIN_STEPS * TRAIN_ACCUM * 2 * L,
-                "decode_attention": 0, "moe_gmm": 0, "ssd": 0}
+    expected = train_launches(cfg, steps * TRAIN_ACCUM)
     steady = sorted(times[1:])[len(times[1:]) // 2]
-    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_4K.seq_len} tokens ({TRAIN_ACCUM} "
-        f"micro-batches, remat full): median step after the first {1e3 * steady:.1f} ms = "
-        f"{tokens / steady:.0f} tokens/s, share {8 * n * tokens / (steady * peak_flops('bfloat16')):.4f}; "
-        f"first step {1e3 * times[0]:.1f} ms; loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+    log(f"[train] {arch} ({depth} L): {steps} steps of {TRAIN_BATCH} x {TRAIN_4K.seq_len} tokens "
+        f"({TRAIN_ACCUM} micro-batches, remat full): median step after the first "
+        f"{1e3 * steady:.1f} ms = {tokens / steady:.0f} tokens/s, share "
+        f"{8 * n * tokens / (steady * peak_flops('bfloat16')):.4f}; first step "
+        f"{1e3 * times[0]:.1f} ms; loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("[train] launches (expected per micro-batch: 2L+1 norms forward and 2L recomputed, "
-        "L attentions forward and L recomputed): " + ", ".join(
+    log(f"[train] {arch} launches (expected per micro-batch: each layer's norms and kernels "
+        "forward and recomputed, the final norm, each backward kernel once): " + ", ".join(
             f"{name} {counts[name]} (expected {c})" for name, c in expected.items()))
     if not all(math.isfinite(g) for g in norms) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training did not progress: losses {losses}, grad norms {norms}")
+        raise AssertionError(f"{arch}: training did not progress: losses {losses}, grad norms {norms}")
     if counts != expected:
-        raise AssertionError(f"training: launch counts {counts} != expected {expected}")
-    # where a step's device time goes (after the counts were read; two more steps)
-    profile_breakdown(torch, f"{TRAIN_ARCH} ({depth} L) train step", 1, lambda: step(state, batch))
+        raise AssertionError(f"{arch} training: launch counts {counts} != expected {expected}")
+    # where a step's device time goes (after the counts were read; more steps)
+    seen = profile_breakdown(torch, f"{arch} ({depth} L) train step", 1, lambda: step(state, batch))
+    for group, kernel, _ in KERNEL_GROUPS:
+        if kernel and counts[kernel] and group not in seen:
+            raise AssertionError(f"{arch}: {counts[kernel]} {kernel} launches in training, but the "
+                                 f"profile shows no device time in its group ({group})")
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[train] {arch} (c) {time.perf_counter() - t_start:.1f} s")
     return counts
 
 
@@ -1704,7 +1889,7 @@ def train_lm_resume(torch):
         cfg = train_lm.hundred_m_config()
         L, runs = cfg.num_layers, 2 * TRAIN_LM_STEPS
         expected = {"rmsnorm": runs * (2 * L + 1), "flash_attention": runs * L,
-                    "decode_attention": 0, "moe_gmm": 0, "ssd": 0}
+                    "decode_attention": 0, "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
         same = sum(got.get(k) == v for k, v in want.items())
         ok = (not first["completed"] and second["completed"] and got == want
               and counts == expected)
@@ -1735,14 +1920,14 @@ def train_lm_resume(torch):
 
 def phase_train(torch, timer: Timer):
     """Training on the card: (a) the kernels' gradients, (b) model gradients against
-    the CPU, (c) a training run, (d) ``train_lm``'s crash and resume. Returns the
-    launch counts of (c) and (d)."""
+    the CPU, (c) a training run of each ``TRAIN_RUNS`` model, (d) ``train_lm``'s
+    crash and resume. Returns the launch counts of (c) and (d)."""
     t0 = time.perf_counter()
     train_kernel_rows(torch, timer)
     t1 = time.perf_counter()
     train_reference(torch)
     t2 = time.perf_counter()
-    counts = [train_run(torch)]
+    counts = [train_run(torch, arch, steps) for arch, steps in TRAIN_RUNS]
     t3 = time.perf_counter()
     counts.append(train_lm_resume(torch))
     log(f"[train] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
@@ -1802,13 +1987,15 @@ def launch_serve(torch, arch: str, card: str):
     return counts
 
 
-def launch_train(torch, card: str):
-    """(b) ``python -m repro_torch.launch.train``'s ``run`` on whisper-base at full
-    width (``LAUNCH_TRAIN_FLAGS``) under deterministic algorithms: an uninterrupted
-    ``LAUNCH_TRAIN_STEPS[1]``-step run, then a run to ``LAUNCH_TRAIN_STEPS[0]`` and a
-    restart to ``LAUNCH_TRAIN_STEPS[1]`` from its checkpoint; the restarted run's
-    losses and grad norms must equal the uninterrupted run's bitwise. The step
-    times are ``run``'s own. Returns the launch counts."""
+def launch_train(torch, card: str, arch: str = LAUNCH_TRAIN_ARCH,
+                 crash_and_steps=LAUNCH_TRAIN_STEPS, flags=LAUNCH_TRAIN_FLAGS):
+    """(b) ``python -m repro_torch.launch.train``'s ``run`` on ``arch`` at full width and
+    depth (``flags``; whisper-base, then mamba2-130m) under deterministic algorithms:
+    an uninterrupted run of ``crash_and_steps[1]`` steps, then a run to
+    ``crash_and_steps[0]`` and a restart to ``crash_and_steps[1]`` from its checkpoint;
+    the restarted run's losses and grad norms must equal the uninterrupted run's
+    bitwise (for mamba2 this holds the ssd backward kernel's reductions to a fixed
+    order). The step times are ``run``'s own. Returns the launch counts."""
     import os
     import tempfile
 
@@ -1817,11 +2004,11 @@ def launch_train(torch, card: str):
     from repro_torch.launch import train
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    crash_at, steps = LAUNCH_TRAIN_STEPS
-    cfg = get_config(LAUNCH_TRAIN_ARCH)
+    crash_at, steps = crash_and_steps
+    cfg = get_config(arch)
     with tempfile.TemporaryDirectory(prefix="launch_train_") as tmp:
         args = lambda n, sub: train.parser().parse_args(
-            ["--arch", LAUNCH_TRAIN_ARCH, *LAUNCH_TRAIN_FLAGS, "--steps", str(n),
+            ["--arch", arch, *flags, "--steps", str(n),
              "--ckpt-dir", os.path.join(tmp, sub), "--device", "cuda"])
         torch.use_deterministic_algorithms(True)
         try:
@@ -1837,20 +2024,23 @@ def launch_train(torch, card: str):
     (straight_run, wall), (first_run, _), (second_run, resume_wall) = walls
     straight, first, second = straight_run.losses, first_run.losses, second_run.losses
     step_s = [straight_run.step_s[k] for k in sorted(straight_run.step_s)]
-    tokens = int(LAUNCH_TRAIN_FLAGS[LAUNCH_TRAIN_FLAGS.index("--batch") + 1]) * int(
-        LAUNCH_TRAIN_FLAGS[LAUNCH_TRAIN_FLAGS.index("--seq") + 1])
+    tokens = int(flags[flags.index("--batch") + 1]) * int(flags[flags.index("--seq") + 1])
     steady = sorted(step_s[1:steps])[(steps - 1) // 2]   # the straight run's median after step 1
     runs = steps + crash_at + (steps - crash_at)
-    per_step = cfg.encoder_layers + 2 * cfg.num_layers   # no remat in the encdec family
-    expected = {"rmsnorm": 0, "flash_attention": runs * per_step, "decode_attention": 0,
-                "moe_gmm": 0, "ssd": 0}
+    if cfg.family == "encdec":   # no remat in the encdec family
+        per_step = cfg.encoder_layers + 2 * cfg.num_layers
+        expected = {"rmsnorm": 0, "flash_attention": runs * per_step, "decode_attention": 0,
+                    "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
+    else:                        # one micro-batch a step under remat "full"
+        expected = train_launches(cfg, runs)
+        per_step = expected["flash_attention"] // runs
     resumed = {k: v for k, v in straight.items() if k > crash_at}
     resumed_norms = {k: v for k, v in straight_run.grad_norms.items() if k > crash_at}
     ok = (sorted(first) == list(range(1, crash_at + 1)) and second == resumed
           and second_run.grad_norms == resumed_norms
           and all(first[k] == straight[k] for k in first) and counts == expected
           and all(math.isfinite(v) for v in straight.values()))
-    log(f"[launch] train {cfg.name} ({' '.join(LAUNCH_TRAIN_FLAGS)}), deterministic algorithms: "
+    log(f"[launch] train {cfg.name} ({' '.join(flags)}), deterministic algorithms: "
         f"{steps} steps straight, {crash_at} then a restart to {steps}: "
         f"{sum(second.get(k) == v for k, v in resumed.items())} of {len(resumed)} resumed losses "
         f"equal the uninterrupted run's (and grad norms: "
@@ -1861,7 +2051,9 @@ def launch_train(torch, card: str):
         f"first {1e3 * step_s[0]:.1f} ms; walls {wall:.1f} s straight, {resume_wall:.1f} s the "
         f"restart (init or restore and checkpoints included); launches "
         f"flash {counts['flash_attention']} (expected {expected['flash_attention']}: "
-        f"{per_step} a step), rmsnorm {counts['rmsnorm']} {'ok' if ok else 'FAIL'} on {card}")
+        f"{per_step} a step), rmsnorm {counts['rmsnorm']}, ssd {counts['ssd']}, ssd_backward "
+        f"{counts['ssd_backward']} (expected {expected['ssd_backward']}) {'ok' if ok else 'FAIL'} "
+        f"on {card}")
     if not ok:
         raise AssertionError(f"launch.train: the restarted run differs ({second} != {resumed}) or "
                              f"counts {counts} != {expected}")
@@ -1902,12 +2094,14 @@ def launch_service(timings):
 
 def phase_launch(torch, card: str, timings):
     """Phase 7: ``launch.serve`` (granite-8b and whisper-base), ``launch.train``
-    (whisper-base, resumed bitwise) and the inference service on the card's
+    (whisper-base and mamba2-130m, resumed bitwise) and the inference service on the card's
     constants. Returns the launch counts of the serve and train runs."""
     t0 = time.perf_counter()
     counts = [launch_serve(torch, arch, card) for arch in LAUNCH_SERVE_ARCHS]
     t1 = time.perf_counter()
     counts.append(launch_train(torch, card))
+    arch, crash_and_steps, flags = LAUNCH_TRAIN_SSM
+    counts.append(launch_train(torch, card, arch, crash_and_steps, flags))
     t2 = time.perf_counter()
     launch_service(timings)
     log(f"[launch] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s")
@@ -1987,7 +2181,7 @@ def sharded_serve(torch, mesh, card: str):
     counts = ops.launch_counts()
     L = cfg.num_layers
     expected = {"rmsnorm": (2 * L + 1) * (1 + SHARDED_DECODE), "flash_attention": L,
-                "decode_attention": L * SHARDED_DECODE, "moe_gmm": 0, "ssd": 0}
+                "decode_attention": L * SHARDED_DECODE, "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
     same_logits = sum(bool(torch.equal(g, w)) for g, w in zip(got, want))
     same_toks = sum(bool(torch.equal(g, w)) for g, w in zip(got_toks, want_toks))
     ok = same_logits == len(want) and same_toks == len(want_toks) and counts == expected
@@ -2047,7 +2241,7 @@ def sharded_train(torch, mesh, card: str):
     L = SHARDED_TRAIN_LAYERS
     expected = {"rmsnorm": SHARDED_TRAIN_STEPS * (4 * L + 1),
                 "flash_attention": SHARDED_TRAIN_STEPS * 2 * L, "decode_attention": 0,
-                "moe_gmm": 0, "ssd": 0}
+                "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
     torch.use_deterministic_algorithms(True)
     try:
         def train(step):
@@ -2239,7 +2433,7 @@ def dryrun_tie(torch, mesh, card: str):
     counts = ops.launch_counts()
     L = cfg.num_layers
     expected = {"rmsnorm": 2 * (2 * L + 1), "flash_attention": L, "decode_attention": L,
-                "moe_gmm": 0, "ssd": 0}
+                "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
     ok = counts == expected
     for kind, live in (("prefill", live_prefill.costs()), ("decode", live_decode.costs())):
         meta = cells[kind]["cost_corrected"]

@@ -47,8 +47,32 @@
 //    warps per (64-column F tile, row tile of up to 160 rows, expert); each
 //    thread owns one column and MF*8 rows on the CUDA cores; a row tile with
 //    no live row writes zeros and reads nothing.
+//
+// The backward (moe_gmm_backward_*; the TPU kernel has none: XLA differentiates
+// the einsum of repro/kernels/ref.py:moe_gmm), kernels/moe_gmm.py:plain_backward
+// in PyTorch:
+//   dxe[e] = dout[e] @ we[e]^T  on the live rows, zero past them;
+//   dwe[e] = xe[e]^T @ dout[e]  summed over the live rows only.
+// Two grouped products, each one launch of gmm_bwd_bf16_kernel<KIND> (bf16, the
+// tensor cores through wmma m16n16k16 with float32 sums: 128 x 128 output tiles,
+// 8 warps of 64 x 32, K in steps of 32) or gmm_bwd_f32_kernel<KIND> (float32 on
+// the CUDA cores: 64 x 64 tiles, 4 x 4 a thread, K in steps of 16). Both read
+// their operands through one strided loader (`stage`) into shared memory, 16
+// bytes a load along each matrix's contiguous dim, so the transposes cost no
+// copy of we or xe: dX reads we [D, F] as the K-major B of a product over F,
+// dW reads xe [R, D] as the M-major A of a product over R. A row past `live` is
+// never loaded (xe and dout may hold anything there): dX's output rows there
+// are written as zero and a row tile with no live row reads nothing; dW's K loop
+// walks each group's live rows only. Each output element is summed by one thread
+// in a fixed order: no atomics, so a run repeats bitwise.
+//
+// Bound on the H100: operations at the training shapes (olmoe-1b-7b's micro-batch,
+// xe [64, 1280, 2048] against we [64, 2048, 1024]: 2*R*D*F = 344 GFLOP a product,
+// about 640 operations a byte moved). This is the simple version: wmma through
+// shared memory staged without a pipeline, no wgmma (later work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -400,6 +424,265 @@ int launch(const void* xe, const void* we, const int* live, void* out, int e, in
 
 }  // namespace simt
 
+// ---------------------------------------------------------------------------
+// 3. the backward: dX = dout @ we^T and dW = xe^T @ dout
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int kThreads = 256;
+enum Kind { kDX = 0, kDW = 1 };
+
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
+__device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.f); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float v, float* o) { *o = v; }
+__device__ __forceinline__ void put(float v, bf16* o) { *o = __float2bfloat16(v); }
+
+// Stages a TI x TJ tile of a product's operand into shared memory. The operand is a
+// row-major matrix of `no` rows and `nc` columns (row stride `ld`); with `along_j` the
+// tile's j runs along its columns (tile (i, j) = matrix (o0 + i, c0 + j)), else its i
+// does (tile (i, j) = matrix (o0 + j, c0 + i)). Tile (i, j) lands at dst[i*di + j*dj].
+// Entries outside the matrix, and whole rows for which live_row(row) is false, are
+// zero and are not read. 16 bytes a load where `vec` (nc a multiple of 16 bytes of T
+// and src 16-byte aligned).
+template <typename T, int TI, int TJ, typename Live>
+__device__ __forceinline__ void stage(T* dst, int di, int dj, const T* __restrict__ src,
+                                      int64_t ld, bool along_j, int o0, int no, int c0, int nc,
+                                      bool vec, Live live_row) {
+  constexpr int V = 16 / sizeof(T);
+  const int outer = along_j ? TI : TJ, inner = along_j ? TJ : TI;
+  static_assert(TI % V == 0 && TJ % V == 0, "tiles hold whole vectors");
+  const int nvec = inner / V;
+  for (int idx = threadIdx.x; idx < outer * nvec; idx += kThreads) {
+    const int o = idx / nvec, c = (idx % nvec) * V;
+    const int go = o0 + o, gc = c0 + c;
+    const bool row = go < no && live_row(go);
+    const T* p = src + static_cast<int64_t>(go) * ld + gc;
+    __align__(16) T v[V];
+    if (row && vec && gc < nc) {
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = row && gc + e < nc ? p[e] : zero_of(T());
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int i = along_j ? o : c + e, j = along_j ? c + e : o;
+      dst[i * di + j * dj] = v[e];
+    }
+  }
+}
+
+// The two products of one expert e as C[M, N] = sum_k A(m, k) B(k, n):
+//   kDX: M = rows, N = d, K = f; A = dout[e] (rows live), B(k, n) = we[e][n][k]; C = dxe[e]
+//   kDW: M = d, N = f, K = rows; A(m, k) = xe[e][k][m], B = dout[e]; K over live rows; C = dwe[e]
+struct Problem {
+  const void* xe;
+  const void* we;
+  const int* live;
+  const void* dout;
+  void* out;
+  int rows, groups, d, f;
+  bool vec_x, vec_w, vec_o;  // xe rows (d), we rows (f), dout rows (f): 16-byte loads
+};
+
+// Calls tile(k0, k_end) for each K step of `bk` of kind K: every step of F for kDX; for
+// kDW the steps over each group's live rows (k_end: the group's first dead row).
+template <int K, typename Tile>
+__device__ __forceinline__ void for_k(const Problem& pr, int e, int bk, Tile tile) {
+  if (K == kDX) {
+    for (int k0 = 0; k0 < pr.f; k0 += bk) tile(k0, pr.f);
+    return;
+  }
+  const int c = pr.rows / pr.groups;
+  for (int g = 0; g < pr.groups; ++g) {
+    const int lo = g * c;
+    const int hi = lo + (pr.live ? min(max(pr.live[e * pr.groups + g], 0), c) : c);
+    for (int k0 = lo; k0 < hi; k0 += bk) tile(k0, hi);
+  }
+}
+
+// A tile [m0, m0 + TM) x [k0, k0 + TK) and B tile [k0, k0 + TK) x [n0, n0 + TN) of kind K
+// into shared memory (A at a[m*adi + k*adj], B at b[k*bdi + n*bdj]).
+template <int K, int TM, int TN, int TK, typename T>
+__device__ __forceinline__ void stage_ab(const Problem& pr, int e, int m0, int n0, int k0,
+                                         int k_end, T* a, int adi, int adj, T* b, int bdi,
+                                         int bdj) {
+  const int c = pr.rows / pr.groups;
+  const int* live = pr.live;
+  const int groups = pr.groups;
+  auto live_row = [=](int r) { return row_live(live, e, groups, c, r); };
+  auto all = [](int) { return true; };
+  const T* xe = static_cast<const T*>(pr.xe) + static_cast<int64_t>(e) * pr.rows * pr.d;
+  const T* we = static_cast<const T*>(pr.we) + static_cast<int64_t>(e) * pr.d * pr.f;
+  const T* dout = static_cast<const T*>(pr.dout) + static_cast<int64_t>(e) * pr.rows * pr.f;
+  if (K == kDX) {
+    // A(m, k) = dout[m][k]: rows m, columns k; B(k, n) = we[n][k]: rows n, columns k
+    stage<T, TM, TK>(a, adi, adj, dout, pr.f, true, m0, pr.rows, k0, k_end, pr.vec_o, live_row);
+    stage<T, TK, TN>(b, bdi, bdj, we, pr.f, false, n0, pr.d, k0, k_end, pr.vec_w, all);
+  } else {
+    // A(m, k) = xe[k][m]: rows k (live, below k_end), columns m; B(k, n) = dout[k][n]
+    stage<T, TM, TK>(a, adi, adj, xe, pr.d, false, k0, k_end, m0, pr.d, pr.vec_x, all);
+    stage<T, TK, TN>(b, bdi, bdj, dout, pr.f, true, k0, k_end, n0, pr.f, pr.vec_o, all);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void mn_of(const Problem& pr, int& m, int& n) {
+  m = K == kDX ? pr.rows : pr.d;
+  n = K == kDX ? pr.d : pr.f;
+}
+
+// kDX: does row tile [m0, m0 + tm) hold a live row? (The block-wide vote ends with a barrier.)
+template <int K>
+__device__ __forceinline__ bool tile_has_work(const Problem& pr, int e, int m0, int tm) {
+  if (K == kDW) return true;
+  const int c = pr.rows / pr.groups;
+  int any = 0;
+  for (int r = threadIdx.x; r < tm; r += kThreads) any |= row_live(pr.live, e, pr.groups, c, m0 + r);
+  return __syncthreads_or(any);
+}
+
+// Writes element (m, n) of expert e's output: the sum, or zero on a dead dX row.
+template <int K, typename T>
+__device__ __forceinline__ void write_out(const Problem& pr, int e, int m, int n, float v) {
+  int mm, nn;
+  mn_of<K>(pr, mm, nn);
+  if (m >= mm || n >= nn) return;
+  if (K == kDX && !row_live(pr.live, e, pr.groups, pr.rows / pr.groups, m)) v = 0.f;
+  put(v, static_cast<T*>(pr.out) + (static_cast<int64_t>(e) * mm + m) * nn + n);
+}
+
+// bf16: wmma m16n16k16 on the tensor cores, float32 sums
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kLdA = kBK + 8, kLdB = kBN + 8;  // shared row strides, elements (x 16 bytes)
+constexpr int kSmemAB = (kBM * kLdA + kBK * kLdB) * 2;
+constexpr int kSmemOut = 8 * 16 * 16 * 4;      // one 16 x 16 float tile a warp
+constexpr int kSmemBf16 = kSmemAB > kSmemOut ? kSmemAB : kSmemOut;
+
+template <int K>
+__global__ void __launch_bounds__(kThreads) gmm_bwd_bf16_kernel(Problem pr) {
+  using namespace nvcuda;
+  __shared__ __align__(128) uint8_t smem[kSmemBf16];
+  bf16* as = reinterpret_cast<bf16*>(smem);         // [kBM][kLdA]: A(m, k)
+  bf16* bs = as + kBM * kLdA;                       // [kBK][kLdB]: B(k, n)
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;           // 2 x 4 warps of 64 x 32
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  if (tile_has_work<K>(pr, e, m0, kBM)) {
+    for_k<K>(pr, e, kBK, [&](int k0, int k_end) {
+      stage_ab<K, kBM, kBN, kBK>(pr, e, m0, n0, k0, k_end, as, kLdA, 1, bs, kLdB, 1);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(fa[i], as + (wm * 64 + 16 * i) * kLdA + kk, kLdA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], bs + kk * kLdB + wn * 32 + 16 * j, kLdB);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+      __syncthreads();  // the tiles' readers are done
+    });
+  }
+  // epilogue: each warp's fragments through its 16 x 16 float tile of shared memory
+  float* os = reinterpret_cast<float*>(smem) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(os, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r = lane / 2, c0 = (lane % 2) * 8;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        write_out<K, bf16>(pr, e, m0 + wm * 64 + 16 * i + r, n0 + wn * 32 + 16 * j + c0 + c,
+                           os[r * 16 + c0 + c]);
+      }
+      __syncwarp();
+    }
+}
+
+// float32: CUDA cores, 4 x 4 outputs a thread
+constexpr int kFM = 64, kFN = 64, kFK = 16, kFLd = 64 + 4;
+
+template <int K>
+__global__ void __launch_bounds__(kThreads) gmm_bwd_f32_kernel(Problem pr) {
+  __shared__ __align__(16) float as[kFK * kFLd];  // A(m, k) at [k][m]
+  __shared__ __align__(16) float bs[kFK * kFLd];  // B(k, n) at [k][n]
+  const int n0 = blockIdx.x * kFN, m0 = blockIdx.y * kFM, e = blockIdx.z;
+  const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (tile_has_work<K>(pr, e, m0, kFM)) {
+    for_k<K>(pr, e, kFK, [&](int k0, int k_end) {
+      stage_ab<K, kFM, kFN, kFK>(pr, e, m0, n0, k0, k_end, as, 1, kFLd, bs, kFLd, 1);
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kFK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(as + k * kFLd + 4 * tm);
+        const float4 b = *reinterpret_cast<const float4*>(bs + k * kFLd + 4 * tn);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    });
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) write_out<K, float>(pr, e, m0 + 4 * tm + i, n0 + 4 * tn + j, acc[i][j]);
+}
+
+template <typename T>
+int launch(const void* xe, const void* we, const int* live, const void* dout, void* dxe,
+           void* dwe, int e, int rows, int groups, int d, int f, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int V = 16 / sizeof(T);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  Problem pr{xe, we, live, dout, nullptr, rows, groups, d, f,
+             d % V == 0 && aligned(xe), f % V == 0 && aligned(we), f % V == 0 && aligned(dout)};
+  const int bm = kBf16 ? kBM : kFM, bn = kBf16 ? kBN : kFN;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // dX [rows, d], then dW [d, f], each expert's tiles along grid z
+  for (int kind = 0; kind < 2; ++kind) {
+    const int m = kind == kDX ? rows : d, n = kind == kDX ? d : f;
+    if (m == 0 || n == 0) continue;
+    dim3 grid((n + bn - 1) / bn, (m + bm - 1) / bm, e);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    pr.out = kind == kDX ? dxe : dwe;
+    if (kBf16) {
+      if (kind == kDX) gmm_bwd_bf16_kernel<kDX><<<grid, kThreads, 0, st>>>(pr);
+      else gmm_bwd_bf16_kernel<kDW><<<grid, kThreads, 0, st>>>(pr);
+    } else {
+      if (kind == kDX) gmm_bwd_f32_kernel<kDX><<<grid, kThreads, 0, st>>>(pr);
+      else gmm_bwd_f32_kernel<kDW><<<grid, kThreads, 0, st>>>(pr);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+}  // namespace bwd
+
 bool bad_shape(int e, int rows, int groups, int d, int f) {
   return e < 0 || rows < 0 || d < 0 || f < 0 || e > 65535 || groups <= 0 || rows % groups != 0;
 }
@@ -430,4 +713,24 @@ extern "C" int moe_gmm_bf16(const void* xe, const void* we, const void* live, vo
     case 80 * 16 + 3: return wg::launch<80, 3>(xe, we, lv, out, e, rows, groups, d, f, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward: dxe [E, rows, d] and dwe [E, d, f] in the inputs' dtype (the formula of
+// kernels/moe_gmm.py:plain_backward); live as for the forward.
+extern "C" int moe_gmm_backward_f32(const void* xe, const void* we, const void* live,
+                                    const void* dout, void* dxe, void* dwe, int e, int rows,
+                                    int groups, int d, int f, void* stream) {
+  if (bad_shape(e, rows, groups, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (e == 0) return static_cast<int>(cudaGetLastError());
+  return bwd::launch<float>(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
+                            d, f, stream);
+}
+
+extern "C" int moe_gmm_backward_bf16(const void* xe, const void* we, const void* live,
+                                     const void* dout, void* dxe, void* dwe, int e, int rows,
+                                     int groups, int d, int f, void* stream) {
+  if (bad_shape(e, rows, groups, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (e == 0) return static_cast<int>(cudaGetLastError());
+  return bwd::launch<bf16>(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
+                           d, f, stream);
 }

@@ -14,6 +14,7 @@ that have no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, List, NamedTuple
 
 import torch
 
@@ -59,12 +60,20 @@ SIGNATURES = {
         "moe_gmm_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
         # ... and the tile plan (rows per wgmma, wgmmas per row tile) before the stream
         "moe_gmm_bf16": (_P,) * 4 + (_I,) * 7 + (_P,),
+        # the backward: xe, we, live (or null), dout, dxe, dwe, e, rows, groups, d, f, stream
+        "moe_gmm_backward_f32": (_P,) * 6 + (_I,) * 5 + (_P,),
+        "moe_gmm_backward_bf16": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     "ssd": {
         # x, a, b, c, y, h_final, float32 workspaces (chunk states, C·Bᵀ, chunk decays),
         # b, s, h, p, n, chunk, stream
         "ssd_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
         "ssd_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
+        # the backward: x, a, b, c, dy, dhf (or null), the forward's states, C·Bᵀ, decays and
+        # final state, dx, da, db, dc, float32 workspaces (state gradients, per-head db and
+        # dc), b, s, h, p, n, chunk, stream
+        "ssd_backward_f32": (_P,) * 17 + (_I,) * 6 + (_P,),
+        "ssd_backward_bf16": (_P,) * 17 + (_I,) * 6 + (_P,),
     },
 }
 
@@ -154,6 +163,29 @@ class Cost(NamedTuple):
     output written once), the inputs of its bound and of ``launch.hlo_counter``."""
     flops: float
     bytes: float
+
+
+# the counters of launch.hlo_counter that are on: each has kernel_begin(name, cost) and
+# kernel_end() (``kernels.ops.observers`` is this list)
+observers: List = []
+
+
+@contextlib.contextmanager
+def kernel_scope(name: str, cost: Callable[[], Cost]):
+    """One kernel call: ``cost()`` (the call's ``Cost``) goes to every observer, which
+    counts no ATen op until the call returns. ``kernels.ops`` opens one around each
+    entry point; an ``autograd.Function``'s backward kernel opens its own."""
+    if not observers:
+        yield
+        return
+    c = cost()
+    for o in observers:
+        o.kernel_begin(name, c)
+    try:
+        yield
+    finally:
+        for o in observers:
+            o.kernel_end()
 
 
 def check(err: int, what: str) -> None:

@@ -14,6 +14,14 @@ shape (the dry-run); ``cost`` is the work of one call.
 ``kernel_for`` picks the kernel by dtype: bf16 runs on the tensor cores
 (``wgmma``, the rows of a block cut by ``tile_plan``), float32 on the CUDA
 cores.
+
+The gradient: ``backward`` launches the backward kernel (the same source):
+dxe = dout·weᵀ on the live rows, zero past them, and dwe = xeᵀ·dout summed
+over the live rows only, each accumulated in float32; ``plain_backward`` is the
+same formula in PyTorch and ``backward_cost`` its work. ``MoeGmmFunction`` is
+the kernel under autograd: its forward is ``moe_gmm`` (``plain`` on a CPU
+tensor), its backward ``backward`` (``plain_backward`` on a CPU tensor), each
+backward call a kernel scope of its own for the counters.
 """
 from __future__ import annotations
 
@@ -24,14 +32,17 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["moe_gmm", "plain", "cost", "live_rows", "kernel_for", "tile_plan", "launches",
+           "backward", "plain_backward", "backward_cost", "backward_launches", "MoeGmmFunction",
            "BLOCK_COLS", "MAX_BLOCK_ROWS"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
+backward_launches = 0  # backward kernel launches since the last reset
 
 BLOCK_COLS = 128      # wg::kBM: F columns per block of the tensor-core kernel
 MAX_BLOCK_ROWS = 240  # the largest row tile: 3 products of 80 rows
 
 _ENTRY = {torch.float32: "moe_gmm_f32", torch.bfloat16: "moe_gmm_bf16"}
+_BACKWARD_ENTRY = {torch.float32: "moe_gmm_backward_f32", torch.bfloat16: "moe_gmm_backward_bf16"}
 # (rows up to, (rows per wgmma product, products per block)): the pairs the source
 # instantiates, the smallest that holds R rows
 _PLANS = ((8, (8, 1)), (16, (8, 2)), (80, (80, 1)), (160, (80, 2)))
@@ -117,3 +128,87 @@ def moe_gmm(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor] = N
     _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm")
     launches += 1
     return out
+
+
+def plain_backward(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor],
+                   dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``plain(xe, we, live)`` for the output gradient ``dout``:
+    (dxe in xe's dtype, dwe in we's dtype), float32 sums.
+
+    dxe[e] = dout[e]·we[e]ᵀ on the live rows and zero past them (the forward reads
+    none of those rows); dwe[e] = xe[e]ᵀ·dout[e] over the live rows only: what lies
+    past ``live`` in either is never read."""
+    d, x = dout.float(), xe.float()
+    if live is not None:
+        mask = live_rows(live, xe.shape[1])[..., None]
+        zero = torch.zeros((), dtype=torch.float32, device=xe.device)
+        d, x = torch.where(mask, d, zero), torch.where(mask, x, zero)
+    dxe = torch.einsum("ecf,edf->ecd", d, we.float())
+    dwe = torch.einsum("ecd,ecf->edf", x, d)
+    return dxe.to(xe.dtype), dwe.to(we.dtype)
+
+
+def backward_cost(xe: torch.Tensor, we: torch.Tensor, *, rows: Optional[int] = None,
+                  experts: Optional[int] = None) -> _build.Cost:
+    """4·D·F operations a live row (dxe's and dwe's products); the live rows of xe and
+    dout and the weights of the experts with a live row read once, dxe (every row) and
+    dwe written once. ``rows`` and ``experts`` as for ``cost``."""
+    e, r, d = xe.shape
+    f = we.shape[2]
+    rows = e * r if rows is None else rows
+    experts = e if experts is None else experts
+    return _build.Cost(4.0 * rows * d * f, float((rows * (d + f) + experts * d * f + e * r * d
+                                                  + e * d * f) * xe.element_size()))
+
+
+def backward(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor],
+             dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: xe [E, R, D], we [E, D, F], dout [E, R, F] of xe's dtype,
+    live int32 [E, G] or None -> (dxe [E, R, D], dwe [E, D, F]) in xe's dtype."""
+    global backward_launches
+    if xe.device.type == "meta":
+        return torch.empty_like(xe), torch.empty_like(we)
+    _build.check_inputs("moe_gmm backward", xe.device, xe=xe, we=we, dout=dout,
+                        **({} if live is None else {"live": live}))
+    _build.require(xe.dtype in _ENTRY and we.dtype == xe.dtype and dout.dtype == xe.dtype,
+                   f"moe_gmm backward: xe, we and dout must share a dtype of {list(_ENTRY)}")
+    _build.require(xe.dim() == 3 and we.dim() == 3 and dout.dim() == 3,
+                   "moe_gmm backward: xe [E,R,D], we [E,D,F], dout [E,R,F]")
+    e, rows, d = xe.shape
+    f = we.shape[2]
+    _build.require(tuple(we.shape[:2]) == (e, d) and tuple(dout.shape) == (e, rows, f),
+                   "moe_gmm backward: we or dout disagrees with xe")
+    _build.require(e <= 65535 and max(rows, d, f) < 2**31, "moe_gmm backward: too many rows")
+    groups = 1
+    if live is not None:
+        _build.require(live.dtype == torch.int32 and live.dim() == 2 and live.shape[0] == e,
+                       "moe_gmm backward: live must be int32 [E, G]")
+        groups = live.shape[1]
+        _build.require(groups > 0 and rows % groups == 0,
+                       "moe_gmm backward: G must divide the rows")
+    dxe, dwe = torch.empty_like(xe), torch.empty_like(we)
+    fn = getattr(_build.library("moe_gmm"), _BACKWARD_ENTRY[xe.dtype])
+    _build.check(fn(xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
+                    dout.data_ptr(), dxe.data_ptr(), dwe.data_ptr(), e, rows, groups, d, f,
+                    _build.stream(xe.device)), "moe_gmm backward")
+    backward_launches += 1
+    return dxe, dwe
+
+
+class MoeGmmFunction(torch.autograd.Function):
+    """``moe_gmm`` (the kernel; ``plain`` on the CPU) forward, ``backward`` (the kernel;
+    ``plain_backward`` on the CPU) backward."""
+
+    @staticmethod
+    def forward(ctx, xe, we, live):
+        ctx.save_for_backward(xe, we, live)
+        return plain(xe, we, live) if xe.device.type == "cpu" else moe_gmm(xe, we, live)
+
+    @staticmethod
+    def backward(ctx, dout):
+        xe, we, live = ctx.saved_tensors
+        dout = dout.contiguous()
+        with _build.kernel_scope("moe_gmm_backward", lambda: backward_cost(xe, we)):
+            run = plain_backward if xe.device.type == "cpu" else backward
+            dxe, dwe = run(xe, we, live, dout)
+        return dxe, dwe, None

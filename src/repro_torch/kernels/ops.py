@@ -13,16 +13,19 @@ and bytes, as its bound counts them) and see none of the ATen ops inside the
 call, so a step counts the same on ``meta`` tensors, on the CPU (the plain
 version) and on the card.
 
-Under autograd (grad mode on and an input that requires grad) ``rmsnorm``
-and ``flash_attention`` go to their ``torch.autograd.Function`` on every
-device: the forward is the kernel (its plain version on the CPU, empty
-outputs on ``meta``), the backward the gradient formula in torch ops, which
-the counters count op by op. ``decode_attention``, ``moe_gmm`` and ``ssd``
-have no backward yet: on a CUDA tensor they raise ``NotImplementedError``
-there, rather than return an output that no gradient passes through; on the
-CPU and on ``meta`` they run their plain version inside the kernel scope, so
-the forward counts by ``cost`` and the backward by the plain version's
-gradient ops on both. Serving runs under ``torch.inference_mode()``.
+Under autograd (grad mode on and an input that requires grad) ``rmsnorm``,
+``flash_attention``, ``moe_gmm`` and ``ssd`` go to their
+``torch.autograd.Function`` on every device: the forward is the kernel (its
+plain version on the CPU, empty outputs on ``meta``). The backward of
+``moe_gmm`` and ``ssd`` is a kernel as well (its plain formula on the CPU,
+empty outputs on ``meta``), each call a kernel scope of its own counted by its
+module's ``backward_cost``; that of ``rmsnorm`` and ``flash_attention`` is
+the gradient formula in torch ops, which the counters count op by op.
+``decode_attention`` has no backward (serving runs under
+``torch.inference_mode()``): on a CUDA tensor it raises
+``NotImplementedError`` there, rather than return an output that no gradient
+passes through; on the CPU and on ``meta`` it runs its plain version inside
+the kernel scope.
 
 A ``DTensor`` (the sharded steps of ``serving.engine`` and
 ``training.train_step``) runs the same call on its local shard: the kernel
@@ -41,13 +44,13 @@ replicated.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
@@ -60,25 +63,8 @@ _KERNELS = {"rmsnorm": _rms, "flash_attention": _flash, "decode_attention": _dec
 
 
 # the counters of launch.hlo_counter that are on: each has kernel_begin(name, cost) and
-# kernel_end()
-observers: List = []
-
-
-@contextlib.contextmanager
-def _kernel(name: str, cost: Callable):
-    """One kernel call: ``cost()`` (the module's ``cost`` on this call's inputs) goes
-    to every observer, which counts no ATen op until the call returns."""
-    if not observers:
-        yield
-        return
-    c = cost()
-    for o in observers:
-        o.kernel_begin(name, c)
-    try:
-        yield
-    finally:
-        for o in observers:
-            o.kernel_end()
+# kernel_end(); the kernel modules' backward scopes report to the same list
+observers: List = _build.observers
 
 
 def _meta_autograd(*tensors) -> bool:
@@ -160,7 +146,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     if isinstance(x, DTensor):
         return on_shards(lambda xl, sl: rmsnorm(xl, sl, eps=eps), (x, scale),
                          (_rows(x), {}), (_rows(x),))
-    with _kernel("rmsnorm", lambda: _rms.cost(x, scale)):
+    with _build.kernel_scope("rmsnorm", lambda: _rms.cost(x, scale)):
         if _wants_grad(x, scale):
             return _rms.RMSNormFunction.apply(x, scale, eps)
         if x.device.type == "cpu":
@@ -173,7 +159,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if isinstance(q, DTensor):
         return on_shards(lambda *t: flash_attention(*t, causal=causal, window=window, scale=scale),
                          (q, k, v), (_ATTN,) * 3, (_ATTN,))
-    with _kernel("flash_attention", lambda: _flash.cost(q, k, v, causal=causal, window=window)):
+    with _build.kernel_scope("flash_attention",
+                             lambda: _flash.cost(q, k, v, causal=causal, window=window)):
         if _wants_grad(q, k, v):
             return _flash.FlashAttentionFunction.apply(q, k, v, causal, window, scale)
         if q.device.type == "cpu":
@@ -188,7 +175,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window: int = 0,
         return on_shards(lambda *t: decode_attention(*t, window=window, scale=scale),
                          (q, k_cache, v_cache, slot_pos, cur_pos),
                          (row, _ATTN, _ATTN, {"b": 0}, {"b": 0}), (row,))
-    with _kernel("decode_attention",
+    with _build.kernel_scope("decode_attention",
                  lambda: _decode.cost(q, k_cache, v_cache, slot_pos, cur_pos)):
         if q.device.type == "cpu" or _meta_autograd(q, k_cache, v_cache):
             return _decode.plain(q, k_cache, v_cache, slot_pos, cur_pos, window=window,
@@ -203,10 +190,11 @@ def moe_gmm(xe, we, live=None):
     if isinstance(xe, DTensor):
         e = {"e": 0}
         return on_shards(moe_gmm, (xe, we, live), (e, e, e), (e,))
-    with _kernel("moe_gmm", lambda: _gmm.cost(xe, we)):
-        if xe.device.type == "cpu" or _meta_autograd(xe, we):
+    with _build.kernel_scope("moe_gmm", lambda: _gmm.cost(xe, we)):
+        if _wants_grad(xe, we):
+            return _gmm.MoeGmmFunction.apply(xe, we, live)
+        if xe.device.type == "cpu":
             return _gmm.plain(xe, we, live)
-        _no_backward("moe_gmm", xe, we)
         return _gmm.moe_gmm(xe, we, live)
 
 
@@ -216,18 +204,27 @@ def ssd(x, a, b, c, *, chunk: int):
         return on_shards(lambda *t: ssd(*t, chunk=chunk), (x, a, b, c),
                          ({"b": 0, "h": 2, "p": 3}, {"b": 0, "h": 2}, {"b": 0}, {"b": 0}),
                          ({"b": 0, "h": 2, "p": 3}, {"b": 0, "h": 1, "p": 2}))
-    with _kernel("ssd", lambda: _ssd.cost(x, a, b, c, chunk=chunk)):
-        if x.device.type == "cpu" or _meta_autograd(x, a, b, c):
+    with _build.kernel_scope("ssd", lambda: _ssd.cost(x, a, b, c, chunk=chunk)):
+        if _wants_grad(x, a, b, c):
+            return _ssd.SSDFunction.apply(x, a, b, c, chunk)
+        if x.device.type == "cpu":
             return _ssd.plain(x, a, b, c, min(chunk, x.shape[1]))
-        _no_backward("ssd", x, a, b, c)
         return _ssd.ssd(x, a, b, c, chunk=chunk)
 
 
+# the backward kernels: name -> the module whose ``backward_launches`` counts them
+_BACKWARD_KERNELS = {"moe_gmm_backward": _gmm, "ssd_backward": _ssd}
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    """Kernel launches per kernel since the last reset (the backward kernels as
+    ``<name>_backward``)."""
+    return {**{name: mod.launches for name, mod in _KERNELS.items()},
+            **{name: mod.backward_launches for name, mod in _BACKWARD_KERNELS.items()}}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    for mod in _BACKWARD_KERNELS.values():
+        mod.backward_launches = 0

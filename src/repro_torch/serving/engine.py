@@ -26,6 +26,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config.parallel import ParallelPlan
 from repro_torch.models.model import ModelApi
+from repro_torch.sharding.constraints import argmax_last
 from repro_torch.sharding.rules import (batch_sharding, cache_shardings, param_shardings, place,
                                         place_tree, step_mesh)
 
@@ -47,7 +48,7 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
 def build_serve_steps(api: ModelApi) -> ServeSteps:
     def decode(params, cache, tokens):
         logits, cache = api.decode_step(params, cache, tokens)
-        return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return logits, argmax_last(logits).to(torch.int32), cache
 
     return ServeSteps(prefill=api.prefill, decode=decode, sample=_sample)
 

@@ -121,6 +121,15 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
                                                 for p in x.placements))
 
 
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(x, dim=-1)``; on a DTensor sharded along the last dim (vocab-sharded
+    logits) that dim is gathered first. DTensor's own argmax there (torch 2.13)
+    all-gathers each rank's (max, index) along the reduced dim, and fails where the
+    rank holds one row ("shape '[1, 16, 16, 1]' is invalid for input of size 16": a
+    batch of 2 on the 2 x 16 x 16 mesh, sharded over "pod" alone)."""
+    return torch.argmax(unshard(x, -1), dim=-1)
+
+
 def split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
     """``x`` [..., heads * head_dim] -> [..., heads, head_dim].
 

@@ -19,7 +19,11 @@ of the sharded steps at production size that it found.
     as ``OK``; granite-8b and whisper-base ``decode_32k`` (heads fewer than
     the 16-way model axis), olmoe-1b-7b ``decode_32k`` (a sequence-sharded
     cache write) and whisper-base ``train_4k`` (the step counter, and the
-    gradients of the heads' reshapes) run on ``make_production_mesh()``.
+    gradients of the heads' reshapes) run on ``make_production_mesh()``; on
+    ``make_production_mesh(multi_pod=True)``, a batch of 2 (the smallest that
+    ``step_mesh`` cannot merge: sharded over "pod" alone) and a plan that names
+    "pod" for the tensor dims run on the three-axis mesh, where DTensor's argmax
+    failed on a rank's one row.
   * granite-8b smoke's counted FLOPs lie within a stated band of the
     reference's ``corrected_costs`` on a 4-device JAX mesh (a child process
     with its own ``XLA_FLAGS``).
@@ -48,6 +52,10 @@ FAULT_CELLS = {"F2 granite": ("granite-8b", "decode_32k"),
                "F2 whisper": ("whisper-base", "decode_32k"),
                "F3 olmoe": ("olmoe-1b-7b", "decode_32k"),
                "F5 whisper": ("whisper-base", "train_4k")}
+# the multi-pod mesh's cells that step_mesh cannot merge (granite-8b smoke; the plan
+# override, if any): a batch of 2 sharded over "pod" alone, and tensor dims on "pod"
+THREE_AXIS_CELLS = {"batch 2": ("decode", 1024, 2, None),
+                    "tensor on pod": ("decode_32k", 32768, 128, ("pod",))}
 LAYERS = (1, 2, 3)
 # granite-8b smoke on a (2, 2) mesh, counted FLOPs over the reference's corrected_costs.
 # decode: both count the same projections and the attention over every cache slot, so
@@ -117,8 +125,49 @@ def _child(out_dir):
         except Exception as e:   # the test names the fault
             out["faults"][name] = {"error": f"{type(e).__name__}: {e}"}
     dist.destroy_process_group()
+    out["three_axis"] = _three_axis()
+    dist.destroy_process_group()
     with open(Path(out_dir) / "dryrun.json", "w") as f:
         json.dump(out, f)
+
+
+def _three_axis():
+    """The multi-pod mesh's cells that ``step_mesh`` keeps on three axes, and DTensor's
+    argmax over vocab-sharded logits with one row a rank beside ``argmax_last``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.config.shapes import SHAPES, ShapeConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.dryrun import default_plan, run_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.constraints import argmax_last
+    from repro_torch.sharding.rules import step_mesh
+
+    pods = make_production_mesh(multi_pod=True)
+    plan = default_plan(SHAPES["decode_32k"], pods)
+    out = {"refused": [b for b in range(1, 9) if step_mesh(pods, plan, (b,))[0] is pods],
+           "cells": {}}
+    for name, (kind, seq, batch, tensor_axes) in THREE_AXIS_CELLS.items():
+        shape = ShapeConfig(f"{kind}_b{batch}", seq_len=seq, global_batch=batch, kind="decode")
+        cell_plan = default_plan(shape, pods)
+        if tensor_axes:
+            cell_plan = dataclasses.replace(cell_plan, tensor_axes=tensor_axes)
+        out["cells"][name] = {"merged": step_mesh(pods, cell_plan, (batch,))[0] is not pods}
+        try:
+            cell = run_cell("granite-8b", shape, pods, "multi_pod_2x16x16", plan=cell_plan,
+                            cfg=get_smoke("granite-8b"))
+            out["cells"][name].update(flops=cell["cost_corrected"]["flops"],
+                                      devices=cell["devices"])
+        except Exception as e:   # the test names the fault
+            out["cells"][name]["error"] = f"{type(e).__name__}: {e}"
+    logits = distribute_tensor(torch.zeros(2, 64), pods, (Shard(0), Replicate(), Shard(1)))
+    out["argmax_last"] = list(argmax_last(logits).to_local().shape)
+    try:
+        torch.argmax(logits, dim=-1)
+        out["argmax"] = "ok"
+    except RuntimeError as e:
+        out["argmax"] = str(e)
+    return out
 
 
 _REFERENCE = """
@@ -444,6 +493,55 @@ def test_a_multi_pod_step_runs_on_the_merged_view(fake):
     assert view["kept"] == [True, True]
     assert view["cells"]["pods"] == view["cells"]["flat"]
     assert view["cells"]["pods"][2]["counts"]["all-reduce"] > 0
+
+
+def test_step_mesh_keeps_three_axes_for_a_batch_of_two_first():
+    """The smallest batch that ``step_mesh`` cannot merge on the 2 x 16 x 16 mesh under
+    the default plan: 2 divides "pod" (2) but not pod x data (32), so the batch shards
+    over "pod" alone on the mesh and not at all on the (32, 16) view. Stub meshes: no
+    process group."""
+    from types import SimpleNamespace
+
+    from repro_torch.sharding.rules import _batch_shards, step_mesh
+    from repro_torch.config.parallel import ParallelPlan
+
+    plan = ParallelPlan()
+    pods = SimpleNamespace(axis_names=("pod", "data", "model"),
+                           shape={"pod": 2, "data": 16, "model": 16})
+    view = SimpleNamespace(axis_names=("data", "model"), shape={"data": 32, "model": 16})
+    view_plan = plan.restrict_to(view.axis_names)
+    differ = [b for b in range(1, 65) if _batch_shards(plan, pods, b)
+              != _batch_shards(view_plan, view, b)]
+    assert differ[:3] == [2, 4, 6] and 32 not in differ and 64 not in differ
+    assert step_mesh(pods, plan, (2,)) == (pods, plan)   # a stub is no DeviceMesh: kept
+
+
+@pytest.mark.parametrize("name", sorted(THREE_AXIS_CELLS))
+def test_a_step_runs_on_three_axes_where_the_view_cannot_merge(fake, reference_dryrun, name):
+    """On ``make_production_mesh(multi_pod=True)`` granite-8b smoke's decode at a batch
+    of 2 (sharded over "pod" alone) and with the tensor dims on "pod" stay on the
+    three-axis mesh and run there; each cell's ``model_flops`` equals the reference's,
+    which lowers both cells (PERF.md §6 gives the reference's counts beside the
+    port's). DTensor's own argmax over the vocab-sharded logits of a one-row rank fails
+    ("shape '[1, 16, 16, 1]' is invalid for input of size 16"); the decode step takes
+    ``constraints.argmax_last``, which gathers the vocab first."""
+    from repro.config.shapes import ShapeConfig as JaxShapeConfig
+    from repro.configs import get_smoke as jax_get_smoke
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.dryrun import model_flops
+
+    three = fake[0]["three_axis"]
+    assert three["refused"] == [2, 4, 6, 8]
+    cell = three["cells"][name]
+    assert not cell["merged"]
+    assert "error" not in cell, cell["error"]
+    assert cell["devices"] == 512 and cell["flops"] > 0
+    assert three["argmax_last"] == [1] and "is invalid for input of size 16" in three["argmax"]
+    kind, seq, batch, _ = THREE_AXIS_CELLS[name]
+    args = (f"{kind}_b{batch}", seq, batch, "decode")
+    assert model_flops(get_smoke("granite-8b"), ShapeConfig(*args)) == \
+        reference_dryrun.model_flops(jax_get_smoke("granite-8b"), JaxShapeConfig(*args)) > 0
 
 
 @pytest.mark.parametrize("fault", sorted(FAULT_CELLS))

@@ -7,8 +7,9 @@ that the kernels' ``autograd.Function``s run in their backward) against
 causal, windowed and non-causal with Sq != Sk, GQA groups of 1, 4 and 16.
 The ``autograd.Function``s wired through the model under every remat
 policy, with the kernel launch swapped for the plain version (the launch
-runs only on the card: ``chip_smoke.py`` phase 6); and ``decode_attention``,
-``moe_gmm`` and ``ssd`` refusing autograd on CUDA rather than dropping a
+runs only on the card: ``chip_smoke.py`` phase 6); ``moe_gmm`` and ``ssd``
+going to their ``autograd.Function``s (the backward kernels) and
+``decode_attention`` refusing autograd on CUDA rather than dropping a
 gradient, and every kernel's gradient on ``meta`` tensors (the dry-run).
 Inputs come from numpy seeds; everything runs on the CPU.
 """
@@ -27,8 +28,10 @@ from repro.models.model import build as jax_build  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import flash_attention as kfl  # noqa: E402
+from repro_torch.kernels import moe_gmm as kgmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 
@@ -218,19 +221,24 @@ KERNEL_CALLS = {   # each kernel's entry point on tensors of a device that requi
                                _meta(1, 16, 4, device=dev), _meta(1, 16, 4, device=dev), chunk=8),
 }
 FUNCTIONS = {"rmsnorm": "RMSNormFunctionBackward",
-             "flash_attention": "FlashAttentionFunctionBackward"}
+             "flash_attention": "FlashAttentionFunctionBackward",
+             "moe_gmm": "MoeGmmFunctionBackward", "ssd": "SSDFunctionBackward"}
+# the kernels whose backward is a kernel too, by their autograd Function
+BACKWARD_KERNELS = {"moe_gmm": kgmm.MoeGmmFunction, "ssd": kssd.SSDFunction}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
 def test_no_kernel_drops_a_gradient_silently(name):
-    """Under autograd ``rmsnorm`` and ``flash_attention`` go to their
-    ``autograd.Function`` (whose forward is the kernel; on ``meta`` tensors, the
-    dry-run's, its route that returns empty outputs; on the CPU its plain version),
-    and the three kernels without a backward raise ``NotImplementedError`` naming
-    themselves on a CUDA tensor (a fake one: the tests run without a card) and take
-    their plain version on ``meta`` tensors: every output carries a gradient, the
-    same on the CPU as on ``meta``. Without grad each goes to its kernel, which on
-    ``meta`` tensors launches nothing."""
+    """Under autograd ``rmsnorm``, ``flash_attention``, ``moe_gmm`` and ``ssd`` go to
+    their ``autograd.Function`` (whose forward is the kernel; on ``meta`` tensors, the
+    dry-run's, its route that returns empty outputs; on the CPU its plain version) on
+    ``meta`` tensors, on the CPU and on a CUDA tensor (a fake one: the tests run
+    without a card; there the call shows the route) alike; ``decode_attention``,
+    which has no backward, raises
+    ``NotImplementedError`` naming itself on a CUDA tensor and takes its plain version
+    on ``meta`` tensors: every output carries a gradient, the same on the CPU as on
+    ``meta``. Without grad each goes to its kernel, which on ``meta`` tensors launches
+    nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     call = KERNEL_CALLS[name]
@@ -239,6 +247,15 @@ def test_no_kernel_drops_a_gradient_silently(name):
     assert type(on_cpu.grad_fn).__name__ == type(out.grad_fn).__name__
     if name in FUNCTIONS:
         assert type(out.grad_fn).__name__ == FUNCTIONS[name]
+        if name in BACKWARD_KERNELS:
+            # a CPU-only PyTorch cannot record an autograd node on a (fake) CUDA tensor, so
+            # the route shows as the call of the Function, which raises nothing
+            seen = []
+            with FakeTensorMode(), pytest.MonkeyPatch.context() as mp:
+                mp.setattr(BACKWARD_KERNELS[name], "apply",
+                           lambda *a: seen.append(a[0].device.type) or a[0])
+                call("cuda")
+            assert seen == ["cuda"]
     else:
         assert type(out.grad_fn).__name__ not in FUNCTIONS.values()
         with FakeTensorMode(), pytest.raises(NotImplementedError,
@@ -250,3 +267,4 @@ def test_no_kernel_drops_a_gradient_silently(name):
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "meta" and out.grad_fn is None
     assert ops.launch_counts()[name] == 0
+

@@ -4,8 +4,8 @@
 One row an (arch, shape): each mesh's counted FLOPs over ``model_flops``,
 bottleneck and peak GiB a device, and (single-pod mesh) the shares of the
 counted FLOPs: dense matmuls, batched matmuls (einsum: MoE dispatch and
-combine, attention's gradient, the plain SSD), the attention kernels,
-``moe_gmm`` and ``ssd``.
+combine, attention's gradient), the attention kernels, and ``moe_gmm`` and
+``ssd`` with their backward kernels.
 
 Usage: PYTHONPATH=src python tools/dryrun_table.py results/dryrun_torch
 """
@@ -22,7 +22,8 @@ from repro_torch.launch.dryrun import MESHES
 
 _SHARES = (("mm", ("aten.mm", "aten.addmm")), ("bmm", ("aten.bmm", "aten.baddbmm")),
            ("attn", ("kernel:flash_attention", "kernel:decode_attention")),
-           ("gmm/ssd", ("kernel:moe_gmm", "kernel:ssd")))
+           ("gmm/ssd", ("kernel:moe_gmm", "kernel:ssd", "kernel:moe_gmm_backward",
+                        "kernel:ssd_backward")))
 
 
 def report(out_dir: str) -> str:
