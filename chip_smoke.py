@@ -115,10 +115,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -228,8 +230,11 @@ def card_spec():
 
 
 def peak_flops(op_type: str) -> float:
+    """The peak rate of ``op_type`` arithmetic: bf16 and TF32 on the tensor cores,
+    float32 on the CUDA cores."""
     spec = card_spec()
-    return {"bfloat16": spec.peak_flops, "float32": spec.peak_flops_f32}[op_type]
+    return {"bfloat16": spec.peak_flops, "tfloat32": spec.peak_flops_tf32,
+            "float32": spec.peak_flops_f32}[op_type]
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +289,13 @@ class Timer:
         return start.elapsed_time(end) / iters, host_ms > self.sleep_ms
 
 
-def bound_ms(nbytes: float, flops: float, op_type: str):
+def bound_ms(nbytes: float, flops: float, op_type):
     """Least time for the work: bytes over peak bandwidth or operations over the peak
-    rate of their type, whichever is larger."""
+    rate of their type, whichever is larger. ``op_type`` names the type of all of
+    ``flops``, or maps each type to its part of them."""
     t_bytes = nbytes / card_spec().hbm_bandwidth * 1e3
-    t_ops = flops / peak_flops(op_type) * 1e3
+    parts = op_type if isinstance(op_type, dict) else {op_type: flops}
+    t_ops = sum(f / peak_flops(t) for t, f in parts.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -365,7 +372,7 @@ def phase_kernels(torch, timer: Timer):
                label=None, tol=None):
         """``make()`` draws fresh inputs and returns (kernel, plain, library or None) on them;
         ``dtype_name`` is the output's dtype (it sets the tolerance unless ``tol`` does),
-        ``op_type`` the arithmetic's (it sets the peak rate of the bound)."""
+        ``op_type`` the arithmetic's (it sets the peak rate of the bound, ``bound_ms``)."""
         label = label or dtype_name
         sets = [make() for _ in range(Timer.copies(nbytes))]
         kernel_fn, plain_fn, lib_fn = sets[0]
@@ -705,6 +712,7 @@ def phase_kernels(torch, timer: Timer):
                    c.flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
     rows.append(e_ssd)
     rows += backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged)
+    ssd_backward_passes(torch)
     return rows
 
 
@@ -770,13 +778,70 @@ def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
                 c = kssd.backward_cost(meta((b, s_len, h, p), dt), meta((b, s_len, h), torch.float32),
                                        meta((b, s_len, n), dt), meta((b, s_len, n), dt), chunk=chunk,
                                        dhf=with_dhf)
-                # dx, da, db and dc held together; the products are float32 on the CUDA cores
+                # dx, da, db and dc held together: bf16 to 3e-2, float32 to 1e-3
                 record(e_ssd, dtn == "bfloat16" and what == "mamba2", "ssd backward",
                        f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk} "
                        f"dhf={'yes' if with_dhf else 'none'}", make, c.bytes, c.flops, dtn,
-                       "float32")
+                       ssd_backward_op_types(c.flops, dtn, b, s_len, h, p, chunk),
+                       tol=3e-2 if dtn == "bfloat16" else 1e-3)
         torch.cuda.empty_cache()
     return [e_gmm, e_ssd]
+
+
+def ssd_backward_op_types(flops: float, dtype_name: str, b: int, s_len: int, h: int, p: int,
+                          chunk: int):
+    """The ssd backward's ``flops`` by the type its kernel runs them in: in bf16, dY·Xᵀ
+    (l(l+1)·P a head and chunk) on the tensor cores in bf16 and the other products in
+    TF32; in float32, all on the CUDA cores."""
+    if dtype_name != "bfloat16":
+        return {"float32": flops}
+    l = min(chunk, s_len)
+    dyx = b * (s_len // l) * h * l * (l + 1.0) * p
+    return {"bfloat16": dyx, "tfloat32": flops - dyx}
+
+
+def kernel_device_ms(torch, reps: int, fn):
+    """Device ms per call of ``fn`` by device kernel (its name up to the template
+    arguments), summed from the profiler's raw events over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            found = re.search(r"(\w+)\s*[<(]", ev.name().replace("(anonymous namespace)::", ""))
+            name = found.group(1) if found else ev.name()
+            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e6 / reps
+    return by_name
+
+
+def ssd_backward_passes(torch):
+    """The ssd backward kernel's device ms by pass (each of its device kernels) at the
+    training shapes (``TRAIN_SSD_CASES``), bf16 and float32, from the profiler's events."""
+    from repro_torch.kernels import ssd as kssd
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rnd = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda").to(dt)
+    for dt, dtn in ((torch.bfloat16, "bf16"), (torch.float32, "float32")):
+        for what, b, s_len, h, p, n, chunk in TRAIN_SSD_CASES:
+            x, bm, cm = ((rnd(sh, torch.float32) * 0.5).to(dt)
+                         for sh in ((b, s_len, h, p), (b, s_len, n), (b, s_len, n)))
+            a = -(rnd((b, s_len, h), torch.float32) * 0.3).abs()
+            dy = rnd((b, s_len, h, p), dt)
+            _, hf, ws = kssd.forward_with_workspaces(x, a, bm, cm, chunk)
+            passes = kernel_device_ms(torch, 10, lambda: kssd.backward(x, a, bm, cm, dy, None, *ws,
+                                                                       hf, chunk=chunk))
+            log(f"[kernels] ssd backward passes, {what} x[{b},{s_len},{h},{p}] "
+                f"b/c[{b},{s_len},{n}] {dtn}: total {sum(passes.values()):.5f} ms; "
+                + ", ".join(f"{k} {v:.5f} ms" for k, v in passes.items()))
+            del x, bm, cm, a, dy, hf, ws
+            torch.cuda.empty_cache()
 
 
 def expected_launches(cfg, prefills: int, steps: int):
@@ -972,8 +1037,8 @@ def profile_breakdown(torch, what: str, reps: int, fn):
     """Device time per call of ``fn`` by kernel group (torch.profiler), over ``reps``
     calls or as many more as take ``MIN_PROFILE_MS``, the share of the wall time the
     device was idle under the profiler, and the SM clock and power just before and
-    just after; returns the groups that showed device time. Raises if the profiler
-    saw no device kernel."""
+    just after; returns each group that showed device time with its ms per call.
+    Raises if the profiler saw no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1015,7 +1080,7 @@ def profile_breakdown(torch, what: str, reps: int, fn):
     log(f"[profile] {what}: SM clock, max SM clock, power: before [{before}], after [{after}]")
     top = "; ".join(f"{ms:.3f} ms ({n:.0f}) {key[:90]}" for ms, n, key in sorted(others)[::-1][:4])
     log(f"[profile] {what}: largest in other: {top}")
-    return {g for g, ms in groups.items() if ms > 0.0}
+    return {g: ms for g, ms in groups.items() if ms > 0.0}
 
 
 def cast_params(params, template, device, dtype):
@@ -1655,9 +1720,12 @@ def train_kernel_rows(torch, timer: Timer):
         shapes = ((b, s_len, h, p), (b, s_len, h), (b, s_len, n), (b, s_len, n))
         args = [meta(sh, torch.float32 if i == 1 else dt) for i, sh in enumerate(shapes)]
         fwd, bwd = kssd.cost(*args, chunk=chunk), kssd.backward_cost(*args, chunk=chunk)
+        # the forward on the CUDA cores, the backward as ssd_backward_op_types says
+        op_types = ssd_backward_op_types(bwd.flops, dtn, b, s_len, h, p, chunk)
+        op_types["float32"] = op_types.get("float32", 0.0) + fwd.flops
         record("ssd", f"{what} x[{b},{s_len},{h},{p}] b/c[{b},{s_len},{n}] chunk={chunk}", make,
                ("y", "dx", "da", "db", "dc"), fwd.bytes + bwd.bytes, fwd.flops + bwd.flops, dtn,
-               "float32")
+               op_types)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1833,8 +1901,20 @@ def train_run(torch, arch: str, steps: int):
         raise AssertionError(f"{arch}: training did not progress: losses {losses}, grad norms {norms}")
     if counts != expected:
         raise AssertionError(f"{arch} training: launch counts {counts} != expected {expected}")
-    # where a step's device time goes (after the counts were read; more steps)
+    # where a step's device time goes (after the counts were read; more steps), and for an
+    # MoE model the live rows its moe_gmm backward calls see, read in a step of their own
     seen = profile_breakdown(torch, f"{arch} ({depth} L) train step", 1, lambda: step(state, batch))
+    if cfg.family == "moe":
+        lives = []
+        with live_rows_of_backward(torch, lives):
+            step(state, batch)
+        per_step = train_launches(cfg, TRAIN_ACCUM)["moe_gmm_backward"]
+        rows = torch.stack([live for live, _ in lives]).float()
+        ms = seen.get("moe_gmm backward kernel", 0.0) / per_step
+        log(f"[train] {arch}: moe_gmm backward, {per_step} calls a step: {ms:.4f} ms a call "
+            f"(profiled step), live rows a call mean {rows.mean().item():.1f}, min "
+            f"{rows.min().item():.0f}, max {rows.max().item():.0f}, of "
+            f"{sorted({r for _, r in lives})} rows (E x R)")
     for group, kernel, _ in KERNEL_GROUPS:
         if kernel and counts[kernel] and group not in seen:
             raise AssertionError(f"{arch}: {counts[kernel]} {kernel} launches in training, but the "
@@ -1844,6 +1924,26 @@ def train_run(torch, arch: str, steps: int):
     torch.cuda.empty_cache()
     log(f"[train] {arch} (c) {time.perf_counter() - t_start:.1f} s")
     return counts
+
+
+@contextlib.contextmanager
+def live_rows_of_backward(torch, lives: list):
+    """Inside, each ``moe_gmm`` backward call appends its live rows (a device scalar,
+    read after the run) and its rows (E x R) to ``lives``."""
+    from repro_torch.kernels import moe_gmm as kgmm
+
+    real = kgmm.backward
+
+    def counted(xe, we, live, dout):
+        rows = xe.shape[0] * xe.shape[1]
+        lives.append((live.sum() if live is not None
+                      else torch.tensor(rows, device=xe.device), rows))
+        return real(xe, we, live, dout)
+    kgmm.backward = counted
+    try:
+        yield
+    finally:
+        kgmm.backward = real
 
 
 def train_lm_resume(torch):

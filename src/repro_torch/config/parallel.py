@@ -78,6 +78,7 @@ class HardwareSpec:
     ici_bandwidth: float = 900e9        # bytes/s of NVLink per card
     hbm_bytes: int = 80 * 10**9         # 80 GB of HBM3
     peak_flops_f32: float = 67e12       # float32 FLOP/s outside the tensor cores
+    peak_flops_tf32: float = 495e12     # TF32 FLOP/s, tensor cores, dense
     sm_count: int = 132                 # streaming multiprocessors
     l2_bytes: int = 50 * 10**6          # 50 MB of L2
     smem_bytes_per_sm: int = 228 * 1024  # 228 KB of shared memory per SM

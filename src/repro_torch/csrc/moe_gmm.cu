@@ -53,26 +53,39 @@
 // in PyTorch:
 //   dxe[e] = dout[e] @ we[e]^T  on the live rows, zero past them;
 //   dwe[e] = xe[e]^T @ dout[e]  summed over the live rows only.
-// Two grouped products, each one launch of gmm_bwd_bf16_kernel<KIND> (bf16, the
-// tensor cores through wmma m16n16k16 with float32 sums: 128 x 128 output tiles,
-// 8 warps of 64 x 32, K in steps of 32) or gmm_bwd_f32_kernel<KIND> (float32 on
-// the CUDA cores: 64 x 64 tiles, 4 x 4 a thread, K in steps of 16). Both read
-// their operands through one strided loader (`stage`) into shared memory, 16
-// bytes a load along each matrix's contiguous dim, so the transposes cost no
-// copy of we or xe: dX reads we [D, F] as the K-major B of a product over F,
-// dW reads xe [R, D] as the M-major A of a product over R. A row past `live` is
-// never loaded (xe and dout may hold anything there): dX's output rows there
-// are written as zero and a row tile with no live row reads nothing; dW's K loop
-// walks each group's live rows only. Each output element is summed by one thread
-// in a fixed order: no atomics, so a run repeats bitwise.
+// Two grouped products, each one launch. A row past `live` is never loaded (xe and
+// dout may hold anything there): dX's output rows there are written as zero and a
+// row tile with no live row reads nothing; dW's K loop walks each group's live rows
+// only. Each output element is summed by one block in a fixed order: no split-K and
+// no atomics, so a run repeats bitwise.
 //
 // Bound on the H100: operations at the training shapes (olmoe-1b-7b's micro-batch,
 // xe [64, 1280, 2048] against we [64, 2048, 1024]: 2*R*D*F = 344 GFLOP a product,
-// about 640 operations a byte moved). This is the simple version: wmma through
-// shared memory staged without a pipeline, no wgmma (later work).
+// about 640 operations a byte moved).
+//
+// 3. gmm_bwd_wgmma_kernel<KIND, BN>, bf16 (the forward's machinery): a block of two
+//    warpgroups owns a 128 x BN output tile (BN 256, or 128 for a narrow product;
+//    kernels/moe_gmm.py:backward_tile_plan), 64 rows a warpgroup, one wgmma
+//    m64nBNk16 per 16 of K. K runs in steps of 64 through a 4-stage ring of
+//    128-byte-swizzled tiles fed by 16-byte cp.async: two steps load while one
+//    multiplies, and its wgmmas stay in flight while the threads issue the next
+//    step's loads (wait_group 1). Both products read their operands as they lie,
+//    with no transposed copy:
+//      dX: C[rows, d], K = f: A = dout[e] and B(k, n) = we[e][n][k] are both
+//          K-major, wgmma's native layout; dead rows of A are zero-filled without a
+//          read, and a row tile with none live skips its K loop.
+//      dW: C[d, f], K = the live rows: A(m, k) = xe[e][k][m] and B = dout[e] are
+//          both MN-major (the transpose bits, as the forward reads we); the K loop
+//          walks each group's live rows 64 at a time, the ragged end zero-filled.
+//    The float32 sums go out through shared memory as bf16 rows, 16 bytes a store.
+//    On the tensor cores the bound is 989 TFLOP/s; at olmoe's shape dX is 5,120
+//    tiles of 128 x 256 and dW 4,096, one block an SM (193 KB of ring): 70 waves.
+// 4. gmm_bwd_f32_kernel<KIND>, float32 on the CUDA cores: 64 x 64 tiles, 4 x 4 a
+//    thread, K in steps of 16, through one strided loader (`stage`) into shared
+//    memory, 16 bytes a load along each matrix's contiguous dim; each output
+//    element is summed by one thread in a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -138,26 +151,6 @@ __device__ __forceinline__ void wgmma_tn(float (&d)[40], uint64_t a, uint64_t b)
         "+f"(d[38]), "+f"(d[39])
       : "l"(a), "l"(b), "r"(1));
 }
-// 16-byte chunk `c8` (8 elements from column c0 + 8*c8) of row `r` of a row-major
-// [rows, cols] bf16 matrix to shared address `dst` (generic `dst_ptr`); a
-// chunk outside the matrix, or with `ok` false, is zero and reads nothing. `vec`:
-// cols % 8 == 0 and a 16-byte aligned base, so a chunk is wholly in or out.
-__device__ __forceinline__ void load_chunk(uint32_t dst, uint8_t* dst_ptr, const bf16* src,
-                                           int rows, int cols, int r, int c0, bool ok, bool vec) {
-  ok = ok && r < rows && c0 < cols;
-  if (vec) {
-    cp_async16(dst, ok ? src + static_cast<int64_t>(r) * cols + c0 : src, ok ? 16 : 0);
-    return;
-  }
-  __align__(16) bf16 v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    v[j] = (ok && c0 + j < cols) ? src[static_cast<int64_t>(r) * cols + c0 + j]
-                                 : __float2bfloat16(0.f);
-  }
-  *reinterpret_cast<uint4*>(dst_ptr) = *reinterpret_cast<const uint4*>(v);
-}
-
 // Accumulator fragment of m64nNk16 (per warp 16 rows of M): element i of a thread
 // sits at M row lane/4 + 8*((i/2)%2) and N column 8*(i/4) + 2*(lane%4) + i%2.
 template <int NI, int NS>
@@ -433,11 +426,7 @@ constexpr int kThreads = 256;
 enum Kind { kDX = 0, kDW = 1 };
 
 __device__ __forceinline__ float zero_of(float) { return 0.f; }
-__device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.f); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float v, float* o) { *o = v; }
-__device__ __forceinline__ void put(float v, bf16* o) { *o = __float2bfloat16(v); }
 
 // Stages a TI x TJ tile of a product's operand into shared memory. The operand is a
 // row-major matrix of `no` rows and `nc` columns (row stride `ld`); with `along_j` the
@@ -554,65 +543,282 @@ __device__ __forceinline__ void write_out(const Problem& pr, int e, int m, int n
   put(v, static_cast<T*>(pr.out) + (static_cast<int64_t>(e) * mm + m) * nn + n);
 }
 
-// bf16: wmma m16n16k16 on the tensor cores, float32 sums
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLdA = kBK + 8, kLdB = kBN + 8;  // shared row strides, elements (x 16 bytes)
-constexpr int kSmemAB = (kBM * kLdA + kBK * kLdB) * 2;
-constexpr int kSmemOut = 8 * 16 * 16 * 4;      // one 16 x 16 float tile a warp
-constexpr int kSmemBf16 = kSmemAB > kSmemOut ? kSmemAB : kSmemOut;
+// bf16: wgmma on the tensor cores, float32 sums (see the file's head)
+namespace tc {
 
-template <int K>
-__global__ void __launch_bounds__(kThreads) gmm_bwd_bf16_kernel(Problem pr) {
-  using namespace nvcuda;
-  __shared__ __align__(128) uint8_t smem[kSmemBf16];
-  bf16* as = reinterpret_cast<bf16*>(smem);         // [kBM][kLdA]: A(m, k)
-  bf16* bs = as + kBM * kLdA;                       // [kBK][kLdB]: B(k, n)
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, e = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;           // 2 x 4 warps of 64 x 32
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+using namespace hopper;
 
-  if (tile_has_work<K>(pr, e, m0, kBM)) {
-    for_k<K>(pr, e, kBK, [&](int k0, int k_end) {
-      stage_ab<K, kBM, kBN, kBK>(pr, e, m0, n0, k0, k_end, as, kLdA, 1, bs, kLdB, 1);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(fa[i], as + (wm * 64 + 16 * i) * kLdA + kk, kLdA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], bs + kk * kLdB + wn * 32 + 16 * j, kLdB);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();  // the tiles' readers are done
-    });
-  }
-  // epilogue: each warp's fragments through its 16 x 16 float tile of shared memory
-  float* os = reinterpret_cast<float*>(smem) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(os, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane / 2, c0 = (lane % 2) * 8;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        write_out<K, bf16>(pr, e, m0 + wm * 64 + 16 * i + r, n0 + wn * 32 + 16 * j + c0 + c,
-                           os[r * 16 + c0 + c]);
-      }
-      __syncwarp();
-    }
+constexpr int kBM = 128;    // output rows a block: 64 a warpgroup (wgmma's M)
+constexpr int kBK = 64;     // K a stage: one 128-byte row of the swizzle
+constexpr int kStages = 4;  // ring stages: 2 loading, 1 multiplying, 1 read by the wgmmas in flight
+constexpr int kATile = kBM * kBK * 2;
+
+template <int BN>
+struct Tile {
+  static constexpr int kBTile = BN * kBK * 2;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kOutLd = BN + 8;  // epilogue row stride, elements
+  static constexpr int kSmemBytes = kStages * kStage + 1024;  // + alignment slack
+  static_assert(kBM * kOutLd * 2 <= kStages * kStage, "epilogue fits in the ring");
+};
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], both from shared memory; TA, TB: the
+// transpose bits (1: the operand is MN-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
+// D[64 x 256] += A[64 x 16] B[16 x 256], both from shared memory; TA, TB: the
+// transpose bits (1: the operand is MN-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 128) {
+    wgmma_n128<TA, TB>(d, a, b);
+  } else {
+    static_assert(BN == 256, "block columns: 128 or 256");
+    wgmma_n256<TA, TB>(d, a, b);
+  }
+}
+
+// Live rows of group g of expert e (every row when live is null), clamped to [0, c].
+__device__ __forceinline__ int group_live(const Problem& pr, int e, int g, int c) {
+  return pr.live ? min(max(pr.live[e * pr.groups + g], 0), c) : c;
+}
+
+// dW's K steps in load order: kBK rows at a time over each group's live rows, the
+// ragged end of a group zero-filled. Every thread keeps the same cursor.
+struct Cursor {
+  int g, k0, hi;  // group, first row of the step, the group's first dead row
+  __device__ __forceinline__ void settle(const Problem& pr, int e, int c) {
+    while (k0 >= hi && g + 1 < pr.groups) {
+      ++g;
+      k0 = g * c;
+      hi = k0 + group_live(pr, e, g, c);
+    }
+  }
+};
+
+// One (BN-column, 128-row) output tile of expert blockIdx.z's product of kind K:
+//   kDX: C[rows, d] = dout[e] (K-major A) · we[e]ᵀ (K-major B: we's rows are N), K = f;
+//   kDW: C[d, f] = xe[e]ᵀ (MN-major A) · dout[e] (MN-major B), K = the live rows.
+template <int K, int BN>
+__global__ void __launch_bounds__(kThreads, 1) gmm_bwd_wgmma_kernel(Problem pr) {
+  using T = Tile<BN>;
+  constexpr int kTA = K == kDW, kTB = K == kDW;  // dW's operands are MN-major
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ bool s_live[kBM];  // kDX: row m0 + r holds a live row
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, lane = tid % 32, wgi = tid / 128, warp = (tid % 128) / 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int c = pr.rows / pr.groups;
+  const bf16* xe = static_cast<const bf16*>(pr.xe) + static_cast<int64_t>(e) * pr.rows * pr.d;
+  const bf16* we = static_cast<const bf16*>(pr.we) + static_cast<int64_t>(e) * pr.d * pr.f;
+  const bf16* dout = static_cast<const bf16*>(pr.dout) + static_cast<int64_t>(e) * pr.rows * pr.f;
+
+  int nk = 0;  // K steps
+  Cursor cur{0, 0, 0};
+  if (K == kDX) {
+    const bool l = tid < kBM && row_live(pr.live, e, pr.groups, c, m0 + tid);
+    if (tid < kBM) s_live[tid] = l;
+    // a row tile with no live row reads nothing and writes zeros
+    nk = __syncthreads_or(l) ? (pr.f + kBK - 1) / kBK : 0;
+  } else {
+    for (int g = 0; g < pr.groups; ++g) nk += (group_live(pr, e, g, c) + kBK - 1) / kBK;
+    cur.hi = group_live(pr, e, 0, c);
+    cur.settle(pr, e, c);
+  }
+
+  // stage `slot` <- the A and B tiles of the next K step (steps load in order)
+  auto load_stage = [&](int slot, int kt) {
+    const uint32_t a_s = base + slot * T::kStage, b_s = a_s + kATile;
+    uint8_t* a_p = smem + (a_s - base);
+    uint8_t* b_p = a_p + kATile;
+    if (K == kDX) {
+      const int k0 = kt * kBK;
+      for (int i = tid; i < kBM * kBK / 8; i += kThreads) {  // dout rows m, 64 of F
+        const int r = i / 8, c8 = i % 8;
+        const uint32_t off = swz(r, c8, kBM);
+        load_chunk(a_s + off, a_p + off, dout, pr.rows, pr.f, m0 + r, k0 + 8 * c8, s_live[r],
+                   pr.vec_o);
+      }
+      for (int i = tid; i < BN * kBK / 8; i += kThreads) {   // we rows n (D), 64 of F
+        const int r = i / 8, c8 = i % 8;
+        const uint32_t off = swz(r, c8, BN);
+        load_chunk(b_s + off, b_p + off, we, pr.d, pr.f, n0 + r, k0 + 8 * c8, true, pr.vec_w);
+      }
+    } else {
+      const int k0 = cur.k0, hi = cur.hi;  // rows at or past hi: zero, not read
+      for (int i = tid; i < kBK * kBM / 8; i += kThreads) {  // xe rows k, 128 of D
+        const int r = i / (kBM / 8), c8 = i % (kBM / 8);
+        const uint32_t off = swz(r, c8, kBK);
+        load_chunk(a_s + off, a_p + off, xe, hi, pr.d, k0 + r, m0 + 8 * c8, true, pr.vec_x);
+      }
+      for (int i = tid; i < kBK * BN / 8; i += kThreads) {   // dout rows k, BN of F
+        const int r = i / (BN / 8), c8 = i % (BN / 8);
+        const uint32_t off = swz(r, c8, kBK);
+        load_chunk(b_s + off, b_p + off, dout, hi, pr.f, k0 + r, n0 + 8 * c8, true, pr.vec_o);
+      }
+      cur.k0 += kBK;
+      cur.settle(pr, e, c);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // Step kt multiplies while steps kt+1 and kt+2 load; the wgmmas of step kt stay in
+  // flight while the threads issue the loads of step kt+2 into the slot of step kt-2,
+  // whose wgmmas the barrier at the top of step kt has seen finish.
+#pragma unroll
+  for (int st = 0; st < kStages - 2; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 3>();  // step kt has landed
+    fence_proxy_async();
+    __syncthreads();               // ... for every thread; step kt-2's wgmmas are done
+    const uint32_t a_s = base + (kt % kStages) * T::kStage, b_s = a_s + kATile;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint64_t da, db;
+      if (K == kDX) {  // K-major: 16 K columns are 32 bytes along each 128-byte row
+        da = desc(a_s + wgi * 64 * 128 + kk * 32, 16, 1024);
+        db = desc(b_s + kk * 32, 16, 1024);
+      } else {         // MN-major: 16 K rows of 128 bytes; 64-column blocks kBK*128 apart
+        da = desc(a_s + wgi * kBK * 128 + kk * 16 * 128, kBK * 128, 1024);
+        db = desc(b_s + kk * 16 * 128, kBK * 128, 1024);
+      }
+      wgmma_bn<BN, kTA, kTB>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // step kt-1's wgmmas are done
+    fence_regs(acc);
+    const int next = kt + kStages - 2;
+    if (next < nk) load_stage(next % kStages, next);
+    cp_async_commit();
+  }
+  wgmma_wait0();
+  fence_regs(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the epilogue
+
+  // epilogue: the tile in bf16 through shared memory, then 16-byte rows; dX's dead rows zero
+  bf16* os = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {  // accumulator pairs (i, i + 1): neighbouring columns
+    const int m = wgi * 64 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int n = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<__nv_bfloat162*>(os + m * T::kOutLd + n) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+  __syncthreads();
+  const int mm = K == kDX ? pr.rows : pr.d, nn = K == kDX ? pr.d : pr.f;
+  bf16* out = static_cast<bf16*>(pr.out) + static_cast<int64_t>(e) * mm * nn;
+  const bool vec = nn % 8 == 0 && reinterpret_cast<uintptr_t>(pr.out) % 16 == 0;
+  for (int i = tid; i < kBM * BN / 8; i += kThreads) {
+    const int r = i / (BN / 8), c8 = i % (BN / 8), row = m0 + r, col = n0 + 8 * c8;
+    if (row >= mm || col >= nn) continue;
+    uint4 v = *reinterpret_cast<const uint4*>(os + r * T::kOutLd + 8 * c8);
+    if (K == kDX && !s_live[r]) v = make_uint4(0u, 0u, 0u, 0u);
+    bf16* o = out + static_cast<int64_t>(row) * nn + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(o) = v;
+    } else {
+      const bf16* s = reinterpret_cast<const bf16*>(&v);
+      for (int j = 0; j < 8 && col + j < nn; ++j) o[j] = s[j];
+    }
+  }
+}
+
+template <int K, int BN>
+int launch_product(const Problem& pr, int e, cudaStream_t st) {
+  using T = Tile<BN>;
+  const cudaError_t err = cudaFuncSetAttribute(gmm_bwd_wgmma_kernel<K, BN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               T::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m = K == kDX ? pr.rows : pr.d, n = K == kDX ? pr.d : pr.f;
+  if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM, e);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  gmm_bwd_wgmma_kernel<K, BN><<<grid, kThreads, T::kSmemBytes, st>>>(pr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bn_dx, bn_dw: each product's block columns (kernels/moe_gmm.py:backward_tile_plan)
+int launch(const void* xe, const void* we, const int* live, const void* dout, void* dxe,
+           void* dwe, int e, int rows, int groups, int d, int f, int bn_dx, int bn_dw,
+           void* stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  Problem pr{xe, we, live, dout, dxe, rows, groups, d, f,
+             d % 8 == 0 && aligned(xe), f % 8 == 0 && aligned(we), f % 8 == 0 && aligned(dout)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((bn_dx != 128 && bn_dx != 256) || (bn_dw != 128 && bn_dw != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = bn_dx == 128 ? launch_product<kDX, 128>(pr, e, st) : launch_product<kDX, 256>(pr, e, st);
+  if (err != 0) return err;
+  pr.out = dwe;
+  return bn_dw == 128 ? launch_product<kDW, 128>(pr, e, st) : launch_product<kDW, 256>(pr, e, st);
+}
+
+}  // namespace tc
 
 // float32: CUDA cores, 4 x 4 outputs a thread
 constexpr int kFM = 64, kFN = 64, kFK = 16, kFLd = 64 + 4;
@@ -651,30 +857,21 @@ __global__ void __launch_bounds__(kThreads) gmm_bwd_f32_kernel(Problem pr) {
     for (int j = 0; j < 4; ++j) write_out<K, float>(pr, e, m0 + 4 * tm + i, n0 + 4 * tn + j, acc[i][j]);
 }
 
-template <typename T>
-int launch(const void* xe, const void* we, const int* live, const void* dout, void* dxe,
-           void* dwe, int e, int rows, int groups, int d, int f, void* stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int V = 16 / sizeof(T);
+int launch_f32(const void* xe, const void* we, const int* live, const void* dout, void* dxe,
+               void* dwe, int e, int rows, int groups, int d, int f, void* stream) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   Problem pr{xe, we, live, dout, nullptr, rows, groups, d, f,
-             d % V == 0 && aligned(xe), f % V == 0 && aligned(we), f % V == 0 && aligned(dout)};
-  const int bm = kBf16 ? kBM : kFM, bn = kBf16 ? kBN : kFN;
+             d % 4 == 0 && aligned(xe), f % 4 == 0 && aligned(we), f % 4 == 0 && aligned(dout)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // dX [rows, d], then dW [d, f], each expert's tiles along grid z
   for (int kind = 0; kind < 2; ++kind) {
     const int m = kind == kDX ? rows : d, n = kind == kDX ? d : f;
     if (m == 0 || n == 0) continue;
-    dim3 grid((n + bn - 1) / bn, (m + bm - 1) / bm, e);
+    dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM, e);
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     pr.out = kind == kDX ? dxe : dwe;
-    if (kBf16) {
-      if (kind == kDX) gmm_bwd_bf16_kernel<kDX><<<grid, kThreads, 0, st>>>(pr);
-      else gmm_bwd_bf16_kernel<kDW><<<grid, kThreads, 0, st>>>(pr);
-    } else {
-      if (kind == kDX) gmm_bwd_f32_kernel<kDX><<<grid, kThreads, 0, st>>>(pr);
-      else gmm_bwd_f32_kernel<kDW><<<grid, kThreads, 0, st>>>(pr);
-    }
+    if (kind == kDX) gmm_bwd_f32_kernel<kDX><<<grid, kThreads, 0, st>>>(pr);
+    else gmm_bwd_f32_kernel<kDW><<<grid, kThreads, 0, st>>>(pr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -722,15 +919,18 @@ extern "C" int moe_gmm_backward_f32(const void* xe, const void* we, const void* 
                                     int groups, int d, int f, void* stream) {
   if (bad_shape(e, rows, groups, d, f)) return static_cast<int>(cudaErrorInvalidValue);
   if (e == 0) return static_cast<int>(cudaGetLastError());
-  return bwd::launch<float>(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
-                            d, f, stream);
+  return bwd::launch_f32(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
+                          d, f, stream);
 }
 
+// bn_dx, bn_dw: the block columns of the dX and dW products (128 or 256;
+// kernels/moe_gmm.py:backward_tile_plan).
 extern "C" int moe_gmm_backward_bf16(const void* xe, const void* we, const void* live,
                                      const void* dout, void* dxe, void* dwe, int e, int rows,
-                                     int groups, int d, int f, void* stream) {
+                                     int groups, int d, int f, int bn_dx, int bn_dw,
+                                     void* stream) {
   if (bad_shape(e, rows, groups, d, f)) return static_cast<int>(cudaErrorInvalidValue);
   if (e == 0) return static_cast<int>(cudaGetLastError());
-  return bwd::launch<bf16>(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
-                           d, f, stream);
+  return bwd::tc::launch(xe, we, static_cast<const int*>(live), dout, dxe, dwe, e, rows, groups,
+                         d, f, bn_dx, bn_dw, stream);
 }

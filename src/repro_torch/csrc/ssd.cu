@@ -44,34 +44,50 @@
 //
 // The backward (ssd_backward_*; the TPU kernel has none: XLA differentiates
 // repro/models/ssm.py:ssd_chunked), kernels/ssd.py:chunked_backward_reference in
-// PyTorch, is the forward's passes in reverse, five launches a call. With G_c
-// the gradient of the state leaving chunk c (G = dhf after the last chunk, zero
-// without one) and H_c the state entering it (the forward's `states`):
+// PyTorch, is the forward's passes in reverse, four launches a call. With G_c the
+// gradient of the state leaving chunk c (G = dhf after the last chunk, zero without
+// one) and H_c the state entering it (the forward's `states`):
 //   1. ssd_bwd_contrib_kernel, one block per (chunk, head, batch): the chunk's
-//      contribution Σ_i exp(cum_i)·dy_iᵀc_i [P, N] into `dstates` (the forward's
-//      chunk pass with dy ⊙ exp(cum) for X and C for B).
+//      contribution Σ_i exp(cum_i)·dy_iᵀc_i [P, N] into `dstates`.
 //   2. ssd_bwd_state_kernel, one thread per (batch, head, state element): walks
 //      the chunks from the last, G_{c-1} = exp(cum_last_c)·G_c + contribution_c,
 //      and overwrites each contribution with the G of the state leaving its chunk.
-//   3. ssd_bwd_dx_kernel, one block per (chunk, head, batch): y again in float32
-//      (the forward's output pass), dx = (L ⊙ C·Bᵀ)ᵀ·dY + exp(cum_last - cum) ⊙
-//      (B·Gᵀ) in the same two phases, and the gradient of cum as dy_i·y_i -
-//      x_i·dx_i (every term of y_i scales with exp(cum_i), of dx_j with exp(-cum_j))
-//      plus <G, H_next> at the chunk's last step; da is its reverse cumulative
-//      sum within the chunk, by one warp.
-//   4. ssd_bwd_dbc_kernel, one block per (chunk, head, batch): V = L ⊙ dY·Xᵀ
-//      (8 x 8 register tiles on the causal pairs), then this head's share of
-//      dc = V·B + exp(cum) ⊙ (dY·H) and of db = Vᵀ·C + exp(cum_last - cum) ⊙ (X·G),
-//      32 state columns at a time, into float32 workspaces [B, nc, H, l, N].
-//   5. ssd_bwd_sum_kernel, one thread per (batch, step, state column): db and dc
-//      as the sums of the heads' shares, head 0 first, in x's dtype.
-// b and c are shared by the heads, so their gradients sum over the heads; the sum
-// runs in a fixed order, and every other reduction is one thread's or a fixed
-// tree: no atomics, so a run repeats bitwise. The bound is again float32
-// operations on the CUDA cores.
+//   3. ssd_bwd_dx_kernel, one block per (chunk, head, batch): y again (the forward's
+//      output pass), dx = (L ⊙ C·Bᵀ)ᵀ·dY + exp(cum_last - cum) ⊙ (B·Gᵀ), and the
+//      gradient of cum as dy_i·y_i - x_i·dx_i (every term of y_i scales with
+//      exp(cum_i), of dx_j with exp(-cum_j)) plus <G, H_next> at the chunk's last
+//      step; da is its reverse cumulative sum within the chunk, by one warp.
+//   4. ssd_bwd_dbc_kernel, one block per (chunk, 32 state columns, batch): walks the
+//      heads in order, summing V = Σ_h L_h ⊙ dY_h·X_hᵀ and the state terms
+//      Σ_h (exp(cum_h) ⊙ dY_h)·H_h and Σ_h (exp(cum_last_h - cum_h) ⊙ X_h)·G_h on
+//      chip, then dc = V·B + ... and db = Vᵀ·C + ..., written once in x's dtype: b and
+//      c are shared by the heads, and no head's share goes to device memory.
+// Every product is cut into 32 x 32 warp patches (patch_mma). The bf16 entry runs them
+// on the tensor cores with float32 sums: dY·Xᵀ, both operands bf16, as bf16 mma.sync
+// m16n8k16; the others as TF32 m16n8k8, in which x, dy, b and c are exact and go in as
+// they are, and the float32 intermediates (exp(cum) ⊙ dY, exp(cum_last - cum) ⊙ X, the
+// forward's states H and their gradients G, W = L ⊙ C·Bᵀ and V) go in as two TF32
+// numbers each, hi + lo, 21 bits of their 24. Rounded to one TF32 number (10 bits) they
+// failed the bf16 tolerance at mamba2-130m's shape on entries of db and dc near zero:
+// sums over 24 heads x 128 steps of terms near 10 carry ~2^-11 of each, a few
+// hundredths, over the tolerance's 3e-2 floor. With hi + lo the products are float32 to
+// ~2^-21, and the kernel's error is its outputs' bf16 rounding (2^-9), as the CUDA-core
+// kernel's was. The gradient of cum, its reverse sum and <G, H_next> stay float32 on
+// the CUDA cores; L's exponentials are __expf (relative error ~1e-5). The float32 entry
+// runs the same patches as FMAs on the CUDA cores, exact float32 (it holds 1e-3).
+// Every tile is staged with cp.async, all of a phase's loads in flight at once. Every
+// sum runs in a fixed order (a thread's, a fixed tree, or the heads in order): no
+// atomics, so a run repeats bitwise. The bound of the bf16 entry: TF32 operations on
+// the tensor cores, about even with the bytes (at mamba2-130m's micro-batch 22.6 GFLOP
+// at 495 TFLOP/s, 141.6 MB at 3.35 TB/s); of the float32 entry, float32 operations on
+// the CUDA cores. The passes are short blocks that wait on device memory and barriers:
+// at 0.05 of that bound, most of a call is the db/dc pass's walk over the heads (its
+// dY·Xᵀ with L and its state products) and the dx pass's three staged phases.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,7 +95,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxL = 128;   // chunk length
 constexpr int kMaxP = 64;    // head dim
 constexpr int kMaxN = 128;   // state dim
-constexpr int kSlice = 32;   // state columns of C·Bᵀ staged at a time
+constexpr int kSlice = 32;   // state columns of C·Bᵀ staged at a time; of a db/dc block
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -155,13 +171,10 @@ __device__ __forceinline__ void load_tile(const T* src, int64_t stride, int rows
   }
 }
 
-// Inclusive cumsum of a[t * stride], t < l, into cum[t]: every thread loads one step
-// (l <= kThreads), then warp 0 scans: each lane sums a run of steps, and a shuffle
-// scan over the lanes' run totals offsets each run. Ends with a barrier.
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int64_t stride, int l,
-                                             float* cum) {
-  if (threadIdx.x < l) cum[threadIdx.x] = a[threadIdx.x * stride];
-  __syncthreads();
+// Inclusive cumsum of cum[t], t < l (<= kThreads), in place: warp 0, each lane summing a
+// run of steps, then a shuffle scan over the lanes' run totals offsets each run. Ends
+// with a barrier.
+__device__ __forceinline__ void scan_in_place(float* cum, int l) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     const int per = (l + 31) / 32, lo = lane * per, hi = min(lo + per, l);
@@ -178,6 +191,15 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int64_
     for (int t = lo; t < hi; ++t) cum[t] += incl - run;
   }
   __syncthreads();
+}
+
+// Inclusive cumsum of a[t * stride], t < l, into cum[t]: every thread loads one step,
+// then scan_in_place. Ends with a barrier.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int64_t stride, int l,
+                                             float* cum) {
+  if (threadIdx.x < l) cum[threadIdx.x] = a[threadIdx.x * stride];
+  __syncthreads();
+  scan_in_place(cum, l);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -497,56 +519,265 @@ int launch(const void* x, const void* a, const void* b, const void* c, void* y, 
 // the backward
 // ---------------------------------------------------------------------------
 
-// 1. dstates[b, c, hd] <- Σ_i exp(cum_i)·dy_iᵀ c_i [P, N]
+// Each product of the backward is cut into warp patches: 32 x 32 outputs of C = A·B,
+// kMI x kNI tiles of 16 x 8, K in steps of 8, A and B read from shared memory through
+// the functors a(m, k) and b(k, n). kTC (the bf16 entry): TF32 mma.sync m16n8k8 on the
+// tensor cores, float32 sums. x, dy, b and c are bf16, exact in TF32, and go in as they
+// are; an operand that is a float32 intermediate (kSplitA, kSplitB) goes in as two TF32
+// numbers, hi = rna(v) and lo = rna(v - hi), which keep 21 of its 24 bits: a product
+// with one such operand takes two mma (hi·b, lo·b), with two three (the lo·lo term,
+// 2^-22 of the product, dropped). Otherwise (the float32 entry) FMAs on the CUDA cores
+// in exact float32, each thread the same 32 elements: a thread's element r of tile
+// (mi, ni) lies at row m0 + 16 mi + lane/4 + 8 (r/2), column n0 + 8 ni + 2 (lane%4) + r%2.
+constexpr int kMI = 2, kNI = 4, kPatch = 32;
+constexpr int kSplitA = 1, kSplitB = 2;
+using Patch = float[kMI][kNI][4];
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v as TF32 hi and lo (kSplit), or its bits as they are (an exact operand)
+template <bool kSplit>
+__device__ __forceinline__ void tf32_parts(float v, uint32_t& hi, uint32_t& lo) {
+  if (kSplit) {
+    hi = tf32(v);
+    lo = tf32(v - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void zero(Patch& acc) {
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+}
+// The row and column of a thread's element (mi, ni, r) of the patch at (m0, n0).
+__device__ __forceinline__ int prow(int m0, int mi, int r) {
+  return m0 + 16 * mi + (threadIdx.x % 32) / 4 + 8 * (r / 2);
+}
+__device__ __forceinline__ int pcol(int n0, int ni, int r) {
+  return n0 + 8 * ni + 2 * (threadIdx.x % 4) + r % 2;
+}
+
+// acc += A[m0:m0+32, k0:k1] · B[k0:k1, n0:n0+32] (k0, k1 multiples of 8; the shared
+// tiles are zero wherever the matrices end). kSplit: which operands are split (above).
+template <bool kTC, int kSplit, typename A, typename B>
+__device__ __forceinline__ void patch_mma(Patch& acc, int m0, int n0, int k0, int k1, A a, B b) {
+  constexpr bool kSA = kSplit & kSplitA, kSB = kSplit & kSplitB;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int k = k0; k < k1; k += 8) {
+    if constexpr (kTC) {
+      uint32_t ah[kMI][4], al[kMI][4], bh[kNI][2], bl[kNI][2];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        const int r = m0 + 16 * mi + g;
+        tf32_parts<kSA>(a(r, k + t), ah[mi][0], al[mi][0]);
+        tf32_parts<kSA>(a(r + 8, k + t), ah[mi][1], al[mi][1]);
+        tf32_parts<kSA>(a(r, k + t + 4), ah[mi][2], al[mi][2]);
+        tf32_parts<kSA>(a(r + 8, k + t + 4), ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        const int c = n0 + 8 * ni + g;
+        tf32_parts<kSB>(b(k + t, c), bh[ni][0], bl[ni][0]);
+        tf32_parts<kSB>(b(k + t + 4, c), bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          if (kSA) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+          if (kSB) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+          mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+        }
+    } else {
+#pragma unroll 2
+      for (int kk = k; kk < k + 8; ++kk) {
+        float av[kMI][2], bv[kNI][2];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          av[mi][0] = a(m0 + 16 * mi + g, kk);
+          av[mi][1] = a(m0 + 16 * mi + g + 8, kk);
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          bv[ni][0] = b(kk, n0 + 8 * ni + 2 * t);
+          bv[ni][1] = b(kk, n0 + 8 * ni + 2 * t + 1);
+        }
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              acc[mi][ni][r] = fmaf(av[mi][r / 2], bv[ni][r % 2], acc[mi][ni][r]);
+            }
+      }
+    }
+  }
+}
+
+// acc += A[m0:m0+32, k0:k1] · B[k0:k1, n0:n0+32] for bf16 A and Bᵀ in shared memory,
+// both K-contiguous (A(m, k) at a[m*lda + k], B(k, n) at b[n*ldb + k]; k0, k1 multiples
+// of 16, lda and ldb even): bf16 mma.sync m16n8k16, float32 sums, each fragment register
+// one 32-bit load of two neighbouring k.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void patch_mma_bf16(Patch& acc, int m0, int n0, int k0, int k1,
+                                               const __nv_bfloat16* a, int lda,
+                                               const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  auto pair = [](const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); };
+  for (int k = k0; k < k1; k += 16) {
+    uint32_t af[kMI][4], bf[kNI][2];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const __nv_bfloat16* r = a + (m0 + 16 * mi + g) * lda + k + 2 * t;
+      af[mi][0] = pair(r);
+      af[mi][1] = pair(r + 8 * lda);
+      af[mi][2] = pair(r + 8);
+      af[mi][3] = pair(r + 8 * lda + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+      const __nv_bfloat16* c = b + (n0 + 8 * ni + g) * ldb + k + 2 * t;
+      bf[ni][0] = pair(c);
+      bf[ni][1] = pair(c + 8);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
+  }
+}
+
+// Shared tiles of the backward are raw copies of device memory (bf16 stays bf16, read
+// as float by the products' functors), staged with cp.async so that every load of a
+// phase is in flight at once: the blocks are short, and each round trip to device
+// memory is most of a phase. Row strides, in elements: bf16 rows 8 more than a multiple
+// of 64, float rows 4 more than a multiple of 32 where the fragments read a tile along
+// its rows (a(m, k) at m*ld + k), 8 more where they read it along its columns (b(k, n)
+// at k*ld + n): a warp's reads of one fragment register then hit distinct banks.
+template <typename T>
+__host__ __device__ __forceinline__ int ld_rows(int cols) {
+  return sizeof(T) == 2 ? round_up(cols, 64) + 8 : round_up(cols, kPatch) + 4;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int ld_cols(int cols) {
+  return sizeof(T) == 2 ? round_up(cols, 64) + 8 : round_up(cols, kPatch) + 8;
+}
+
+// Rows [0, rows) x columns [0, cols) of a row-major matrix of T (row r at src + r *
+// stride) into dst (row r at dst + r * ld), zero over the rest of [0, rows_cover) x
+// [0, cover) (cover: a multiple of 16 bytes of T): 16-byte cp.async where rows and src
+// are 16-byte aligned, else scalar loads and stores. The caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src, int64_t stride,
+                                      int rows, int rows_cover, int cols, int cover) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = cols % V == 0 && stride % V == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const int nv = cover / V;
+  for (int i = threadIdx.x; i < rows_cover * nv; i += kThreads) {
+    const int r = i / nv, c = (i - r * nv) * V;
+    T* d = dst + r * ld + c;
+    const bool in = r < rows && c < cols;
+    if (vec) {
+      hopper::cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(d)),
+                         in ? src + r * stride + c : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (r < rows && c + e < cols) {
+          d[e] = src[r * stride + c + e];
+        } else {
+          from_float(0.f, &d[e]);
+        }
+      }
+    }
+  }
+}
+
+// a[t * stride], t < l, into dst[t] (4-byte cp.async, one a thread)
+__device__ __forceinline__ void stage_steps(float* dst, const float* __restrict__ a,
+                                            int64_t stride, int l) {
+  if (threadIdx.x < l) {
+    hopper::cp_async4(static_cast<uint32_t>(__cvta_generic_to_shared(dst + threadIdx.x)),
+                      a + threadIdx.x * stride);
+  }
+}
+
+// 1. dstates[b, c, hd] <- Σ_i exp(cum_i)·dy_iᵀ c_i [P, N]: A(p, i) = exp(cum_i)·dy[i][p]
+// (split: an intermediate), B(i, n) = c[i][n].
+template <typename T>
+__host__ __device__ __forceinline__ int contrib_floats(int l, int p, int n) {
+  const int l8 = round_up(l, 8);
+  return l8 + (l8 * (ld_cols<T>(p) + ld_cols<T>(n)) * static_cast<int>(sizeof(T)) + 3) / 4;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_contrib_kernel(const T* __restrict__ dy, const float* __restrict__ a,
                        const T* __restrict__ cm, float* __restrict__ dstates, int s, int nh, int p,
                        int n, int l) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr bool kTC = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   const int ic = blockIdx.x, hd = blockIdx.y, b = blockIdx.z, nc = s / l;
-  const int tid = threadIdx.x;
+  const int warp = threadIdx.x / 32;
   const int64_t t0 = static_cast<int64_t>(b) * s + static_cast<int64_t>(ic) * l;
-  const int p4 = round_up(p, 4), n4 = round_up(n, 4);
-  float* ys = smem;                 // [l][p4]: dY ⊙ exp(cum)
-  float* cs = ys + l * p4;          // [l][n4]
-  float* cum = cs + l * n4;         // [l]
-  chunk_cumsum(a + t0 * nh + hd, nh, l, cum);
-  load_tile(dy + (t0 * nh + hd) * p, static_cast<int64_t>(nh) * p, l, l, p, p4,
-            [&](int t, int d, const float* v) {
-    const float e = expf(cum[t]);
-#pragma unroll
-    for (int q = 0; q < kVec; ++q) {
-      if (d + q < p4) ys[t * p4 + d + q] = v[q] * e;
-    }
-  });
-  load_tile(cm + t0 * n, n, l, l, n, n4, [&](int t, int k, const float* v) {
-#pragma unroll
-    for (int q = 0; q < kVec; ++q) {
-      if (k + q < n4) cs[t * n4 + k + q] = v[q];
-    }
-  });
+  const int l8 = round_up(l, 8), p32 = round_up(p, kPatch), n32 = round_up(n, kPatch);
+  const int ldy = ld_cols<T>(p), ldc = ld_cols<T>(n);
+  float* cum = smem;                           // [l8]: cum, then exp(cum)
+  T* ys = reinterpret_cast<T*>(cum + l8);      // [l8][ldy]: dY
+  T* cs = ys + l8 * ldy;                       // [l8][ldc]: C
+  stage_steps(cum, a + t0 * nh + hd, nh, l);
+  stage(ys, ldy, dy + (t0 * nh + hd) * p, static_cast<int64_t>(nh) * p, l, l8, p, p32);
+  stage(cs, ldc, cm + t0 * n, n, l, l8, n, n32);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
   __syncthreads();
-  float* out = dstates + ((static_cast<int64_t>(b) * nc + ic) * nh + hd) * p * n;
-  const int tn = n4 / 4;
-  for (int m = tid; m < (p4 / 4) * tn; m += kThreads) {
-    const int mp = m / tn, mn = m % tn;
-    float acc[4][4];
+  scan_in_place(cum, l);
+  if (threadIdx.x < l8) cum[threadIdx.x] = threadIdx.x < l ? expf(cum[threadIdx.x]) : 0.f;
+  __syncthreads();
+  const int pn = n32 / kPatch;
+  if (warp < (p32 / kPatch) * pn) {
+    const int m0 = warp / pn * kPatch, n0 = warp % pn * kPatch;
+    Patch acc;
+    zero(acc);
+    patch_mma<kTC, kSplitA>(acc, m0, n0, 0, l8,
+                            [&](int m, int k) { return cum[k] * to_float(ys[k * ldy + m]); },
+                            [&](int k, int c) { return to_float(cs[k * ldc + c]); });
+    float* out = dstates + ((static_cast<int64_t>(b) * nc + ic) * nh + hd) * p * n;
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int t = 0; t < l; ++t) outer<4>(acc, ys + t * p4 + 4 * mp, cs + t * n4 + 4 * mn);
+      for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int pp = 4 * mp + u;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int k = 4 * mn + v;
-        if (pp < p && k < n) out[pp * n + k] = acc[u][v];
-      }
-    }
+        for (int r = 0; r < 4; ++r) {
+          const int row = prow(m0, mi, r), col = pcol(n0, ni, r);
+          if (row < p && col < n) out[row * n + col] = acc[mi][ni][r];
+        }
   }
 }
 
@@ -577,40 +808,49 @@ ssd_bwd_state_kernel(float* __restrict__ dstates, const float* __restrict__ deca
   }
 }
 
-// Floats of the dx pass: the output pass's two phases (reused for dx), cum, exp(cum),
-// exp(cum_last - cum), the partial dot products dy·y and x·dx by thread column
-// ([2][P4/4][l8]) and a reduction buffer.
-__host__ __device__ __forceinline__ int bdx_floats(int l, int p, int n) {
-  const int l8 = round_up(l, 8), tp = round_up(p, 4) / 4;
-  return out_phase_floats(l, p, n) + 3 * l8 + 2 * tp * l8 + kThreads;
-}
-
-// 3. dx and da
+// The dx pass's shared memory, in floats: three phases through one region (the largest
+// of them: C and H; B, G and the state leaving the chunk; C·Bᵀ (then W) with X and dY),
+// then cum, exp(cum), exp(cum_last - cum), the partial dot products dy·y - x·dx by
+// patch column ([2][l32]) and a reduction buffer.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct DxSmem {
+  int l32, p32, n32, ldc, ldh, ldw, ldp;
+  int ph1, ph2, ph3;  // floats of each phase
+  __host__ __device__ DxSmem(int l, int p, int n)
+      : l32(round_up(l, kPatch)), p32(round_up(p, kPatch)), n32(round_up(n, kPatch)),
+        ldc(ld_rows<T>(n)), ldh(ld_rows<float>(n)), ldw(ld_cols<float>(l)), ldp(ld_cols<T>(p)) {
+    const int tile = (l32 * ldc * static_cast<int>(sizeof(T)) + 15) / 16 * 4;  // C or B
+    ph1 = tile + p32 * ldh;
+    ph2 = tile + 2 * p32 * ldh;
+    ph3 = l32 * ldw + (2 * l32 * ldp * static_cast<int>(sizeof(T)) + 15) / 16 * 4;
+  }
+  __host__ __device__ int region() const { return max(ph1, max(ph2, ph3)); }
+  __host__ __device__ int floats() const { return region() + 5 * l32 + kThreads; }
+};
+
+// 3. dx = Wᵀ·dY + exp(cum_last - cum) ⊙ (B·Gᵀ) with W = L ⊙ C·Bᵀ, and da: the gradient of
+// cum, dy_i·y_i - x_i·dx_i with y recomputed (y = W·X + exp(cum) ⊙ (C·Hᵀ)), plus
+// <G, H_next> at the chunk's last step, summed in reverse within the chunk. Warp w owns
+// one 32 x 32 patch of the [l, P] outputs y and dx.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __restrict__ bm,
                   const T* __restrict__ cm, const T* __restrict__ dy,
                   const float* __restrict__ states, const float* __restrict__ cb,
                   const float* __restrict__ dstates, const float* __restrict__ hf,
                   T* __restrict__ dx, float* __restrict__ da, int s, int nh, int p, int n, int l) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr bool kTC = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   const int ic = blockIdx.x, hd = blockIdx.y, b = blockIdx.z, nc = s / l;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t t0 = static_cast<int64_t>(b) * s + static_cast<int64_t>(ic) * l;
-  const int l8 = round_up(l, 8), p4 = round_up(p, 4), n4 = round_up(n, 4), tp = p4 / 4;
-  const int lp = padded(l8), hp = padded(p4);
-  float* cum = smem + out_phase_floats(l, p, n);  // [l8]
-  float* ecum = cum + l8;                          // [l8]: exp(cum)
-  float* edec = ecum + l8;                         // [l8]: exp(cum_last - cum)
-  float* part = edec + l8;                         // [2][tp][l8]: dy·y, x·dx
-  float* red = part + 2 * tp * l8;                 // [kThreads]
-  chunk_cumsum(a + t0 * nh + hd, nh, l, cum);
-  const float cum_last = cum[l - 1];
-  for (int t = tid; t < l; t += kThreads) {
-    ecum[t] = expf(cum[t]);
-    edec[t] = expf(cum_last - cum[t]);
-  }
+  const DxSmem<T> sm(l, p, n);
+  const int l8 = round_up(l, 8), n8 = round_up(n, 8), l32 = sm.l32, p32 = sm.p32;
+  float* cum = smem + sm.region();   // [l32]
+  float* ecum = cum + l32;           // [l32]: exp(cum)
+  float* edec = ecum + l32;          // [l32]: exp(cum_last - cum)
+  float* part = edec + l32;          // [2][l32]: dy·y - x·dx by patch column
+  float* red = part + 2 * l32;       // [kThreads]
   const int64_t row = (static_cast<int64_t>(b) * nc + ic) * nh + hd;
   const float* hc = states + row * p * n;   // H: the state entering the chunk
   const float* gc = dstates + row * p * n;  // G: the gradient of the state leaving it
@@ -621,133 +861,117 @@ ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ a, const T*
   const T* dyh = dy + (t0 * nh + hd) * p;
   const int64_t ld = static_cast<int64_t>(nh) * p;
 
+  const int pn = p32 / kPatch;
+  const bool mine = warp < (l32 / kPatch) * pn;
+  const int m0 = warp / pn * kPatch, n0 = warp % pn * kPatch;  // rows i (or j), columns p
+  Patch y, g;
+  zero(y);
+  zero(g);
+  T* ms = reinterpret_cast<T*>(smem);                             // [l32][ldc]: C, then B
+  float* ks = smem + (sm.ph1 - p32 * sm.ldh);                     // [p32][ldh]: H, then G
+  float* ns = ks + p32 * sm.ldh;                                  // [p32][ldh]: H_next
+
+  // ---- phase 1: y = exp(cum) ⊙ (C·Hᵀ) ----
+  stage_steps(cum, a + t0 * nh + hd, nh, l);
+  stage(ms, sm.ldc, cm + t0 * n, n, l, l32, n, sm.n32);
+  stage(ks, sm.ldh, hc, n, p, p32, n, sm.n32);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  scan_in_place(cum, l);
+  const float cum_last = cum[l - 1];
+  for (int t = tid; t < l32; t += kThreads) {
+    ecum[t] = t < l ? expf(cum[t]) : 0.f;
+    edec[t] = t < l ? expf(cum_last - cum[t]) : 0.f;
+  }
+  if (mine) {
+    patch_mma<kTC, kSplitB>(y, m0, n0, 0, n8, [&](int m, int k) { return to_float(ms[m * sm.ldc + k]); },
+                            [&](int k, int c) { return ks[c * sm.ldh + k]; });
+  }
+  __syncthreads();  // phase 1's readers are done; ecum and edec are written
+
+  // ---- phase 2: dx = exp(cum_last - cum) ⊙ (B·Gᵀ); <G, H_next> ----
+  stage(ms, sm.ldc, bm + t0 * n, n, l, l32, n, sm.n32);
+  stage(ks, sm.ldh, gc, n, p, p32, n, sm.n32);
+  stage(ns, sm.ldh, hn, n, p, p32, n, sm.n32);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
   float gh = 0.f;  // this thread's share of <G, H_next>, summed by a tree below
-  for (int k = tid; k < p * n; k += kThreads) gh = fmaf(gc[k], hn[k], gh);
+  for (int r = warp; r < p; r += kThreads / 32) {
+    for (int c = lane; c < n; c += 32) gh = fmaf(ks[r * sm.ldh + c], ns[r * sm.ldh + c], gh);
+  }
   red[tid] = gh;
-
-  // one 8 x 4 tile of [l, P] a thread (l8/8 x p4/4 <= 256 tiles)
-  const int ntiles = (l8 / 8) * tp;
-  const bool mine = tid < ntiles;
-  const int mi = tid / tp, md = tid % tp;
-  float acc[8][4], off[8][4];
-
-  // ---- y = (L ⊙ C·Bᵀ)·X + (C·Hᵀ) ⊙ exp(cum), as the output pass forms it ----
-  float* st = smem;          // [l][l8]: st[j][i] = L[i][j]·(C·Bᵀ)[i][j]
-  float* xs = st + l * l8;   // [l][p4]
-  load_tile(cbc, l, l, l, l, l8, [&](int j, int r0, const float* v) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + e;
-      const float seg = j <= r ? cum[r] - cum[j] : kNegInf;
-      if (r < l8) st[j * l8 + r] = r < l && j <= r ? expf(seg) * v[e] : 0.f;
-    }
-  });
-  load_tile(xh, ld, l, l, p, p4, [&](int t, int d, const float* v) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (d + e < p4) xs[t * p4 + d + e] = v[e];
-    }
-  });
-  __syncthreads();
-#pragma unroll
-  for (int u = 0; u < 8; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = off[u][v] = 0.f;
   if (mine) {
-    const int jmax = min(l, 8 * mi + 8);
-    for (int j = 0; j < jmax; ++j) outer<8>(acc, st + j * l8 + 8 * mi, xs + j * p4 + 4 * md);
+    patch_mma<kTC, kSplitB>(g, m0, n0, 0, n8, [&](int m, int k) { return to_float(ms[m * sm.ldc + k]); },
+                            [&](int k, int c) { return ks[c * sm.ldh + k]; });
   }
-  __syncthreads();
-  float* ct = smem;          // [n4][lp]: Cᵀ
-  float* ht = ct + n4 * lp;  // [n4][hp]: Hᵀ
-  load_tile(cm + t0 * n, n, l, l8, n, n4, [&](int t, int k, const float* v) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (k + e < n4) ct[(k + e) * lp + t] = v[e];
-    }
-  });
-  load_tile(hc, n, p, p4, n, n4, [&](int d, int k, const float* v) {
+  for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (k + e < n4) ht[(k + e) * hp + d] = v[e];
-    }
-  });
-  __syncthreads();
-  if (mine) {
-    for (int k = 0; k < n; ++k) outer<8>(off, ct + k * lp + 8 * mi, ht + k * hp + 4 * md);
+    for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int r = 8 * mi + u;
-      if (r >= l) continue;
-      float dot = 0.f;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int d = 4 * md + v;
-        if (d < p) dot = fmaf(to_float(dyh[r * ld + d]), acc[u][v] + off[u][v] * ecum[r], dot);
+      for (int r = 0; r < 4; ++r) {
+        const int i = prow(m0, mi, r);
+        y[mi][ni][r] *= ecum[i];
+        g[mi][ni][r] *= edec[i];
       }
-      part[md * l8 + r] = dot;
-    }
-  }
-  __syncthreads();
+  __syncthreads();  // phase 2's readers are done
 
-  // ---- dx = (L ⊙ C·Bᵀ)ᵀ·dY + exp(cum_last - cum) ⊙ (B·Gᵀ) ----
-  float* wt = smem;          // [l][l8]: wt[i][j] = L[i][j]·(C·Bᵀ)[i][j], zero for j > i
-  float* dys = wt + l * l8;  // [l][p4]
-  load_tile(cbc, l, l, l8, l, l8, [&](int j, int r0, const float* v) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = r0 + e;
-      const float seg = j <= i ? cum[i] - cum[j] : kNegInf;
-      if (i < l) wt[i * l8 + j] = j < l && j <= i ? expf(seg) * v[e] : 0.f;
-    }
-  });
-  load_tile(dyh, ld, l, l, p, p4, [&](int t, int d, const float* v) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (d + e < p4) dys[t * p4 + d + e] = v[e];
-    }
-  });
+  // ---- phase 3: W = L ⊙ C·Bᵀ in place of C·Bᵀ; y += W·X, dx += Wᵀ·dY ----
+  float* ws = smem;                                       // [l32][ldw]: (C·Bᵀ)ᵀ, then Wᵀ
+  T* xs = reinterpret_cast<T*>(ws + l32 * sm.ldw);        // [l32][ldp]: X
+  T* ys = xs + l32 * sm.ldp;                              // [l32][ldp]: dY
+  stage(ws, sm.ldw, cbc, l, l, l32, l, l32);
+  stage(xs, sm.ldp, xh, ld, l, l32, p, p32);
+  stage(ys, sm.ldp, dyh, ld, l, l32, p, p32);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
   __syncthreads();
-#pragma unroll
-  for (int u = 0; u < 8; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = off[u][v] = 0.f;
-  if (mine) {
-    for (int i = 8 * mi; i < l; ++i) outer<8>(acc, wt + i * l8 + 8 * mi, dys + i * p4 + 4 * md);
+  for (int j = warp; j < l32; j += kThreads / 32) {  // ws[j][i]: row j, column i
+    for (int i = lane; i < l32; i += 32) {
+      float* w = ws + j * sm.ldw + i;
+      *w = j <= i && i < l ? __expf(cum[i] - cum[j]) * *w : 0.f;  // L masked: j <= i < l only
+    }
   }
   __syncthreads();
-  float* bt = smem;          // [n4][lp]: Bᵀ
-  float* gt = bt + n4 * lp;  // [n4][hp]: Gᵀ
-  load_tile(bm + t0 * n, n, l, l8, n, n4, [&](int t, int k, const float* v) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (k + e < n4) bt[(k + e) * lp + t] = v[e];
-    }
-  });
-  load_tile(gc, n, p, p4, n, n4, [&](int d, int k, const float* v) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (k + e < n4) gt[(k + e) * hp + d] = v[e];
-    }
-  });
-  __syncthreads();
   if (mine) {
-    for (int k = 0; k < n; ++k) outer<8>(off, bt + k * lp + 8 * mi, gt + k * hp + 4 * md);
+    patch_mma<kTC, kSplitA>(y, m0, n0, 0, min(l8, m0 + kPatch),  // rows i: Σ_{j <= i}
+                            [&](int m, int k) { return ws[k * sm.ldw + m]; },
+                            [&](int k, int c) { return to_float(xs[k * sm.ldp + c]); });
+    patch_mma<kTC, kSplitA>(g, m0, n0, m0, l8,                   // rows j: Σ_{i >= j}
+                            [&](int m, int k) { return ws[m * sm.ldw + k]; },
+                            [&](int k, int c) { return to_float(ys[k * sm.ldp + c]); });
+  }
+
+  // ---- dx out, and the gradient of cum by rows: dy·y - x·dx ----
+  if (mine) {
+    float dot[kMI][2];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int j = 8 * mi + u;
-      if (j >= l) continue;
-      float dot = 0.f;
+    for (int mi = 0; mi < kMI; ++mi) dot[mi][0] = dot[mi][1] = 0.f;
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int d = 4 * md + v;
-        if (d >= p) continue;
-        const float g = acc[u][v] + off[u][v] * edec[j];
-        from_float(g, &dx[(t0 + j) * ld + hd * p + d]);
-        dot = fmaf(to_float(xh[j * ld + d]), g, dot);
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = prow(m0, mi, r), d = pcol(n0, ni, r);
+          if (i >= l || d >= p) continue;
+          const float gv = g[mi][ni][r];
+          from_float(gv, &dx[(t0 + i) * ld + hd * p + d]);
+          dot[mi][r / 2] += to_float(ys[i * sm.ldp + d]) * y[mi][ni][r] -
+                            to_float(xs[i * sm.ldp + d]) * gv;
+        }
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = dot[mi][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);  // the quad's four column pairs
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int i = m0 + 16 * mi + lane / 4 + 8 * h;
+        if (lane % 4 == 0) part[(n0 / kPatch) * l32 + i] = v;
       }
-      part[(tp + md) * l8 + j] = dot;
-    }
   }
   __syncthreads();
   for (int w = kThreads / 2; w > 0; w >>= 1) {  // <G, H_next>: a fixed tree
@@ -757,12 +981,12 @@ ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ a, const T*
 
   // ---- da: the reverse cumulative sum of the gradient of cum, by warp 0 ----
   if (tid < 32) {
-    const int lane = tid, per = (l + 31) / 32, lo = min(lane * per, l), hi = min(lo + per, l);
+    const int per = (l + 31) / 32, lo = min(lane * per, l), hi = min(lo + per, l);
     float run = 0.f;
     for (int t = hi - 1; t >= lo; --t) {
-      float g = t == l - 1 ? red[0] : 0.f;
-      for (int q = 0; q < tp; ++q) g += part[q * l8 + t] - part[(tp + q) * l8 + t];
-      run += g;
+      float gcum = t == l - 1 ? red[0] : 0.f;
+      for (int q = 0; q < pn; ++q) gcum += part[q * l32 + t];
+      run += gcum;
       cum[t] = run;  // cum is not read again
     }
     float incl = run;  // this lane's run plus every later lane's
@@ -775,195 +999,202 @@ ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ a, const T*
   }
 }
 
-// Floats of the db/dc pass: dYᵀ and Xᵀ [p4][lp], V [l8][l8], a slice of B or C
-// [l8][kSlice + 4] and of H or G [p4][kSlice + 4], cum, exp(cum), exp(cum_last - cum).
-__host__ __device__ __forceinline__ int bbc_floats(int l, int p) {
-  const int l8 = round_up(l, 8), p4 = round_up(p, 4);
-  return 2 * p4 * padded(l8) + l8 * l8 + (l8 + p4) * (kSlice + 4) + 3 * l8;
+// The db/dc pass's shared memory, in floats: two slots of a head's tiles (its steps'
+// log decays, dY and X, kSlice columns of H and G), then V over them after the heads
+// with kSlice columns of B and C; exp(cum) and exp(cum_last - cum).
+template <typename T>
+struct DbcSmem {
+  int l32, p32, ldp, lds, ldv, ldm;
+  int slot, vsum;  // floats of a head's slot; of V with B's and C's columns
+  __host__ __device__ DbcSmem(int l, int p)
+      : l32(round_up(l, kPatch)), p32(round_up(p, kPatch)), ldp(ld_rows<T>(p)),
+        lds(ld_cols<float>(kSlice)), ldv(ld_rows<float>(l)), ldm(ld_cols<T>(kSlice)) {
+    slot = l32 + (2 * l32 * ldp * static_cast<int>(sizeof(T)) + 15) / 16 * 4 + 2 * p32 * lds;
+    vsum = l32 * ldv + (2 * l32 * ldm * static_cast<int>(sizeof(T)) + 15) / 16 * 4;
+  }
+  __host__ __device__ int floats() const { return max(2 * slot, vsum) + 2 * l32; }
+};
+
+// Lower-triangle patch q of an np x np grid of 32 x 32 patches (row-major over the
+// triangle): its (row, column) patch, or false past the last.
+__device__ __forceinline__ bool tri_patch(int q, int np, int& pi, int& pj) {
+  for (pi = 0; pi < np; ++pi) {
+    if (q <= pi) {
+      pj = q;
+      return true;
+    }
+    q -= pi + 1;
+  }
+  return false;
 }
 
-// 4. this head's shares of dc = V·B + exp(cum) ⊙ (dY·H) and db = Vᵀ·C + exp(cum_last - cum)
-// ⊙ (X·G), with V = L ⊙ dY·Xᵀ, into dch and dbh [B, nc, H, l, N]
+// 4. db and dc for kSlice state columns of a chunk, every head summed on chip, head 0
+// first: with V = Σ_h L_h ⊙ dY_h·X_hᵀ,
+//   dc = V·B + Σ_h (exp(cum_h) ⊙ dY_h)·H_h,   db = Vᵀ·C + Σ_h (exp(cum_last_h - cum_h) ⊙ X_h)·G_h.
+// The heads stream through two slots: head h+1's tiles load while head h multiplies.
+// Warps 0-3 own dc's 32 x 32 patches (rows i), warps 4-7 db's (rows j), and each warp up
+// to two lower-triangle patches of V, in registers across the heads.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __restrict__ bm,
                    const T* __restrict__ cm, const T* __restrict__ dy,
                    const float* __restrict__ states, const float* __restrict__ dstates,
-                   float* __restrict__ dbh, float* __restrict__ dch, int s, int nh, int p, int n,
-                   int l) {
-  constexpr int kVec = 16 / sizeof(T);
+                   T* __restrict__ db, T* __restrict__ dc, int s, int nh, int p, int n, int l) {
+  constexpr bool kTC = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
-  const int ic = blockIdx.x, hd = blockIdx.y, b = blockIdx.z, nc = s / l;
-  const int tid = threadIdx.x;
+  const int ic = blockIdx.x, k0 = blockIdx.y * kSlice, b = blockIdx.z, nc = s / l;
+  const int tid = threadIdx.x, warp = tid / 32;
   const int64_t t0 = static_cast<int64_t>(b) * s + static_cast<int64_t>(ic) * l;
-  const int l8 = round_up(l, 8), p4 = round_up(p, 4), lp = padded(l8), sl = kSlice + 4;
-  float* dyt = smem;            // [p4][lp]: dYᵀ
-  float* xt = dyt + p4 * lp;    // [p4][lp]: Xᵀ
-  float* vs = xt + p4 * lp;     // [l8][l8]: V as [j][i], then as [i][j]
-  float* ms = vs + l8 * l8;     // [l8][sl]: 32 columns of B, then of C
-  float* ks = ms + l8 * sl;     // [p4][sl]: 32 columns of H, then of G
-  float* cum = ks + p4 * sl;    // [l8]
-  float* ecum = cum + l8;       // [l8]: exp(cum)
-  float* edec = ecum + l8;      // [l8]: exp(cum_last - cum)
-  chunk_cumsum(a + t0 * nh + hd, nh, l, cum);
-  const float cum_last = cum[l - 1];
-  for (int t = tid; t < l; t += kThreads) {
-    ecum[t] = expf(cum[t]);
-    edec[t] = expf(cum_last - cum[t]);
-  }
+  const DbcSmem<T> sm(l, p);
+  const int l8 = round_up(l, 8), p8 = round_up(p, 8), l32 = sm.l32, p32 = sm.p32;
+  const int np = l32 / kPatch, cols = min(kSlice, n - k0);
+  const int ldp = sm.ldp, lds = sm.lds;
+  float* ecum = smem + max(2 * sm.slot, sm.vsum);  // [l32]: exp(cum) of the head
+  float* edec = ecum + l32;                        // [l32]: exp(cum_last - cum)
+  // slot u: cum [l32], dY and X [l32][ldp], H's and G's columns [p32][lds]
+  auto cum_of = [&](int u) { return smem + u * sm.slot; };
+  auto ys_of = [&](int u) { return reinterpret_cast<T*>(cum_of(u) + l32); };
+  auto xs_of = [&](int u) { return ys_of(u) + l32 * ldp; };
+  auto hs_of = [&](int u) { return cum_of(u) + sm.slot - 2 * p32 * lds; };
+  auto gs_of = [&](int u) { return hs_of(u) + p32 * lds; };
   const int64_t ld = static_cast<int64_t>(nh) * p;
-  const int64_t row = (static_cast<int64_t>(b) * nc + ic) * nh + hd;
-  const float* hc = states + row * p * n;
-  const float* gc = dstates + row * p * n;
-  load_tile(dy + (t0 * nh + hd) * p, ld, l, l8, p, p4, [&](int t, int d, const float* v) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (d + e < p4) dyt[(d + e) * lp + t] = v[e];
-    }
-  });
-  load_tile(x + (t0 * nh + hd) * p, ld, l, l8, p, p4, [&](int t, int d, const float* v) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (d + e < p4) xt[(d + e) * lp + t] = v[e];
-    }
-  });
-  __syncthreads();
+  auto load_head = [&](int hd, int u) {
+    const int64_t st = ((static_cast<int64_t>(b) * nc + ic) * nh + hd) * p * n + k0;
+    stage_steps(cum_of(u), a + t0 * nh + hd, nh, l);
+    stage(ys_of(u), ldp, dy + (t0 * nh + hd) * p, ld, l, l32, p, p32);
+    stage(xs_of(u), ldp, x + (t0 * nh + hd) * p, ld, l, l32, p, p32);
+    stage(hs_of(u), lds, states + st, n, p, p32, cols, kSlice);
+    stage(gs_of(u), lds, dstates + st, n, p, p32, cols, kSlice);
+  };
 
-  // V: 8 x 8 tiles (ti rows i, tj columns j); the tiles above the diagonal stay zero
-  const int tiles = l8 / 8;
-  const int ti = tid / tiles, tj = tid % tiles;
-  const bool owner = tid < tiles * tiles;
-  float v8[8][8];
+  const bool is_dc = warp < 4;
+  const bool mine = warp % 4 < np;  // this warp's dc or db patch: rows 32 (warp % 4)
+  const int r0 = (warp % 4) * kPatch;
+  int vp[2][2];                     // V patches (row, column) of this warp; -1: none
 #pragma unroll
-  for (int u = 0; u < 8; ++u)
-#pragma unroll
-    for (int w = 0; w < 8; ++w) v8[u][w] = 0.f;
-  if (owner && tj <= ti) {
-    for (int d = 0; d < p; ++d) {
-      const float4 y0 = ld4(dyt + d * lp + 8 * ti), y1 = ld4(dyt + d * lp + 8 * ti + 4);
-      const float4 x0 = ld4(xt + d * lp + 8 * tj), x1 = ld4(xt + d * lp + 8 * tj + 4);
-      const float yi[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-      const float xj[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-#pragma unroll
-        for (int w = 0; w < 8; ++w) v8[u][w] = fmaf(yi[u], xj[w], v8[u][w]);
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int i = 8 * ti + u;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        const int j = 8 * tj + w;
-        v8[u][w] = i < l && j <= i ? v8[u][w] * expf(cum[i] - cum[j]) : 0.f;
-      }
-    }
+  for (int u = 0; u < 2; ++u) {
+    if (!tri_patch(warp + 8 * u, np, vp[u][0], vp[u][1])) vp[u][0] = -1;
   }
-  if (owner) {
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int w = 0; w < 8; ++w) vs[(8 * tj + w) * l8 + 8 * ti + u] = v8[u][w];
-  }
+  Patch acc, v[2];
+  zero(acc);
+  zero(v[0]);
+  zero(v[1]);
 
-  // 4 x 4 tiles of a [l, 32] slice of the outputs
-  const int groups = kSlice / 4, otiles = (l8 / 4) * groups;
-  float* outs[2] = {dch + row * l * n, dbh + row * l * n};
-  for (int pass = 0; pass < 2; ++pass) {  // 0: dc, with V as [j][i]; 1: db, with V as [i][j]
-    if (pass == 1) {
-      __syncthreads();  // dc's readers of V are done
-      if (owner) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-#pragma unroll
-          for (int w = 0; w < 8; ++w) vs[(8 * ti + u) * l8 + 8 * tj + w] = v8[u][w];
-      }
+  load_head(0, 0);
+  hopper::cp_async_commit();
+  for (int hd = 0; hd < nh; ++hd) {
+    const int u = hd & 1;
+    if (hd + 1 < nh) load_head(hd + 1, u ^ 1);  // into the slot head hd-1 left
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();                  // head hd has landed
+    __syncthreads();
+    float* cum = cum_of(u);
+    const T* ys = ys_of(u);
+    const T* xs = xs_of(u);
+    const float* hs = hs_of(u);
+    const float* gs = gs_of(u);
+    scan_in_place(cum, l);
+    const float cum_last = cum[l - 1];
+    for (int t = tid; t < l32; t += kThreads) {
+      ecum[t] = t < l ? expf(cum[t]) : 0.f;
+      edec[t] = t < l ? expf(cum_last - cum[t]) : 0.f;
     }
-    const T* mat = pass == 0 ? bm : cm;
-    const float* st8 = pass == 0 ? hc : gc;
-    const float* tpose = pass == 0 ? dyt : xt;
-    const float* scale = pass == 0 ? ecum : edec;
-    for (int n0 = 0; n0 < n; n0 += kSlice) {
-      const int cols = min(kSlice, n - n0);
-      __syncthreads();  // the previous slice's readers are done (and V is written)
-      load_tile(mat + t0 * n + n0, n, l, l8, cols, kSlice, [&](int t, int k, const float* v) {
+    __syncthreads();
+    // V += L ⊙ dY·Xᵀ on this warp's lower-triangle patches
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          if (k + e < kSlice) ms[t * sl + k + e] = v[e];
-        }
-      });
-      load_tile(st8 + n0, n, p, p4, cols, kSlice, [&](int d, int k, const float* v) {
+    for (int q = 0; q < 2; ++q) {
+      if (vp[q][0] < 0) continue;
+      const int i0 = vp[q][0] * kPatch, j0 = vp[q][1] * kPatch;
+      Patch d;
+      zero(d);
+      if constexpr (kTC) {  // both operands bf16: m16n8k16, the pads zero up to p32
+        patch_mma_bf16(d, i0, j0, 0, round_up(p, 16), ys, ldp, xs, ldp);
+      } else {
+        patch_mma<kTC, 0>(d, i0, j0, 0, p8, [&](int m, int k) { return to_float(ys[m * ldp + k]); },
+                          [&](int k, int c) { return to_float(xs[c * ldp + k]); });
+      }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k + e < kSlice) ks[d * sl + k + e] = v[e];
-        }
-      });
-      __syncthreads();
-      for (int m = tid; m < otiles; m += kThreads) {
-        const int mr = m / groups, mn = m % groups;
-        float acc[4][4], off[4][4];
+      for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] = off[u][v] = 0.f;
-        if (pass == 0) {  // dc rows i: Σ_{j <= i} V[i][j]·b_j
-          const int jmax = min(l, 4 * mr + 4);
-          for (int j = 0; j < jmax; ++j) outer<4>(acc, vs + j * l8 + 4 * mr, ms + j * sl + 4 * mn);
-        } else {          // db rows j: Σ_{i >= j} V[i][j]·c_i
-          for (int i = 4 * mr; i < l; ++i) outer<4>(acc, vs + i * l8 + 4 * mr, ms + i * sl + 4 * mn);
-        }
-        for (int d = 0; d < p; ++d) outer<4>(off, tpose + d * lp + 4 * mr, ks + d * sl + 4 * mn);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int r = 4 * mr + u;
-          if (r >= l) continue;
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int k = 4 * mn + v;
-            if (k < cols) outs[pass][static_cast<int64_t>(r) * n + n0 + k] = acc[u][v] + off[u][v] * scale[r];
+          for (int r = 0; r < 4; ++r) {
+            const int i = prow(i0, mi, r), j = pcol(j0, ni, r);
+            if (j <= i && i < l) v[q][mi][ni][r] += __expf(cum[i] - cum[j]) * d[mi][ni][r];
           }
-        }
+    }
+    // the state terms of this head
+    if (mine) {
+      if (is_dc) {
+        patch_mma<kTC, kSplitA | kSplitB>(
+            acc, r0, 0, 0, p8, [&](int m, int k) { return ecum[m] * to_float(ys[m * ldp + k]); },
+            [&](int k, int c) { return hs[k * lds + c]; });
+      } else {
+        patch_mma<kTC, kSplitA | kSplitB>(
+            acc, r0, 0, 0, p8, [&](int m, int k) { return edec[m] * to_float(xs[m * ldp + k]); },
+            [&](int k, int c) { return gs[k * lds + c]; });
       }
     }
+    __syncthreads();  // slot u is free for head hd+2
   }
-}
 
-// 5. db, dc [B, S, N] <- the heads' shares summed, head 0 first
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_sum_kernel(const float* __restrict__ dbh, const float* __restrict__ dch, T* __restrict__ db,
-                   T* __restrict__ dc, int s, int nh, int n, int l, int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int k = static_cast<int>(idx % n);
-  const int64_t bt = idx / n;
-  const int t = static_cast<int>(bt % s), b = static_cast<int>(bt / s), nc = s / l;
-  const int64_t base = ((static_cast<int64_t>(b) * nc + t / l) * nh) * l * n +
-                       static_cast<int64_t>(t % l) * n + k;
-  const int64_t step = static_cast<int64_t>(l) * n;
-  float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < nh; ++h) {
-    sb += dbh[base + h * step];
-    sc += dch[base + h * step];
+  // V (zero above the diagonal) to shared memory, and the columns of B and C
+  float* vs = smem;                                        // [l32][ldv]
+  T* bs = reinterpret_cast<T*>(vs + l32 * sm.ldv);         // [l32][ldm]: B's columns
+  T* cs = bs + l32 * sm.ldm;                               // [l32][ldm]: C's columns
+  stage(bs, sm.ldm, bm + t0 * n + k0, n, l, l32, cols, kSlice);
+  stage(cs, sm.ldm, cm + t0 * n + k0, n, l, l32, cols, kSlice);
+  hopper::cp_async_commit();
+  for (int i = tid; i < l32 * sm.ldv; i += kThreads) vs[i] = 0.f;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (vp[q][0] < 0) continue;
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = prow(vp[q][0] * kPatch, mi, r), j = pcol(vp[q][1] * kPatch, ni, r);
+          vs[i * sm.ldv + j] = v[q][mi][ni][r];
+        }
   }
-  from_float(sb, &db[idx]);
-  from_float(sc, &dc[idx]);
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  if (!mine) return;
+  if (is_dc) {  // rows i: Σ_{j <= i} V[i][j]·b_j
+    patch_mma<kTC, kSplitA>(acc, r0, 0, 0, min(l8, r0 + kPatch),
+                            [&](int m, int k) { return vs[m * sm.ldv + k]; },
+                            [&](int k, int c) { return to_float(bs[k * sm.ldm + c]); });
+  } else {      // rows j: Σ_{i >= j} V[i][j]·c_i
+    patch_mma<kTC, kSplitA>(acc, r0, 0, r0, l8, [&](int m, int k) { return vs[k * sm.ldv + m]; },
+                            [&](int k, int c) { return to_float(cs[k * sm.ldm + c]); });
+  }
+  T* out = is_dc ? dc : db;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = prow(r0, mi, r), k = pcol(0, ni, r);
+        if (i < l && k < cols) from_float(acc[mi][ni][r], &out[(t0 + i) * n + k0 + k]);
+      }
 }
 
 template <typename T>
 int launch_backward(const void* x, const void* a, const void* b, const void* c, const void* dy,
                     const void* dhf, const void* states, const void* cb, const void* decay,
                     const void* hf, void* dx, void* da, void* db, void* dc, void* dstates,
-                    void* dbh, void* dch, int bsz, int s, int h, int p, int n, int l,
-                    void* stream) {
+                    int bsz, int s, int h, int p, int n, int l, void* stream) {
   if (l <= 0 || l > kMaxL || s % l != 0 || p <= 0 || p > kMaxP || n <= 0 || n > kMaxN ||
       bsz > 65535 || h > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int l8 = round_up(l, 8);
-  const size_t contrib_bytes = sizeof(float) * (l * (round_up(p, 4) + round_up(n, 4)) + l8);
-  const size_t dx_bytes = sizeof(float) * bdx_floats(l, p, n);
-  const size_t dbc_bytes = sizeof(float) * bbc_floats(l, p);
+  const size_t contrib_bytes = sizeof(float) * contrib_floats<T>(l, p, n);
+  const size_t dx_bytes = sizeof(float) * DxSmem<T>(l, p, n).floats();
+  const size_t dbc_bytes = sizeof(float) * DbcSmem<T>(l, p).floats();
   cudaError_t err = cudaFuncSetAttribute(ssd_bwd_contrib_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(contrib_bytes));
@@ -998,15 +1229,9 @@ int launch_backward(const void* x, const void* a, const void* b, const void* c, 
       static_cast<const float*>(hf), static_cast<T*>(dx), static_cast<float*>(da), s, h, p, n, l);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_dbc_kernel<T><<<dim3(nc, h, bsz), kThreads, dbc_bytes, st>>>(
-      xt, at, bt, ct, dyt, static_cast<const float*>(states), dst, static_cast<float*>(dbh),
-      static_cast<float*>(dch), s, h, p, n, l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(bsz) * s * n;
-  ssd_bwd_sum_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0,
-                          st>>>(static_cast<const float*>(dbh), static_cast<const float*>(dch),
-                                static_cast<T*>(db), static_cast<T*>(dc), s, h, n, l, total);
+  ssd_bwd_dbc_kernel<T><<<dim3(nc, (n + kSlice - 1) / kSlice, bsz), kThreads, dbc_bytes, st>>>(
+      xt, at, bt, ct, dyt, static_cast<const float*>(states), dst, static_cast<T*>(db),
+      static_cast<T*>(dc), s, h, p, n, l);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1027,23 +1252,21 @@ extern "C" int ssd_bf16(const void* x, const void* a, const void* b, const void*
 
 // The backward (kernels/ssd.py:backward): dhf [B, H, P, N] or null (zero); states, cb,
 // decay and hf as the forward left them; dx [B, S, H, P] and db, dc [B, S, N] in x's
-// dtype, da [B, S, H] float32; dstates [B, S/l, H, P, N], dbh and dch [B, S/l, H, l, N]:
-// float32 workspaces
+// dtype, da [B, S, H] float32; dstates [B, S/l, H, P, N]: a float32 workspace
 extern "C" int ssd_backward_f32(const void* x, const void* a, const void* b, const void* c,
                                 const void* dy, const void* dhf, const void* states,
                                 const void* cb, const void* decay, const void* hf, void* dx,
-                                void* da, void* db, void* dc, void* dstates, void* dbh, void* dch,
-                                int bsz, int s, int h, int p, int n, int l, void* stream) {
+                                void* da, void* db, void* dc, void* dstates, int bsz, int s, int h,
+                                int p, int n, int l, void* stream) {
   return launch_backward<float>(x, a, b, c, dy, dhf, states, cb, decay, hf, dx, da, db, dc,
-                                dstates, dbh, dch, bsz, s, h, p, n, l, stream);
+                                dstates, bsz, s, h, p, n, l, stream);
 }
 
 extern "C" int ssd_backward_bf16(const void* x, const void* a, const void* b, const void* c,
                                  const void* dy, const void* dhf, const void* states,
                                  const void* cb, const void* decay, const void* hf, void* dx,
-                                 void* da, void* db, void* dc, void* dstates, void* dbh,
-                                 void* dch, int bsz, int s, int h, int p, int n, int l,
-                                 void* stream) {
+                                 void* da, void* db, void* dc, void* dstates, int bsz, int s,
+                                 int h, int p, int n, int l, void* stream) {
   return launch_backward<__nv_bfloat16>(x, a, b, c, dy, dhf, states, cb, decay, hf, dx, da, db,
-                                        dc, dstates, dbh, dch, bsz, s, h, p, n, l, stream);
+                                        dc, dstates, bsz, s, h, p, n, l, stream);
 }

@@ -62,7 +62,8 @@ SIGNATURES = {
         "moe_gmm_bf16": (_P,) * 4 + (_I,) * 7 + (_P,),
         # the backward: xe, we, live (or null), dout, dxe, dwe, e, rows, groups, d, f, stream
         "moe_gmm_backward_f32": (_P,) * 6 + (_I,) * 5 + (_P,),
-        "moe_gmm_backward_bf16": (_P,) * 6 + (_I,) * 5 + (_P,),
+        # ... and the block columns of the dX and dW products before the stream
+        "moe_gmm_backward_bf16": (_P,) * 6 + (_I,) * 7 + (_P,),
     },
     "ssd": {
         # x, a, b, c, y, h_final, float32 workspaces (chunk states, C·Bᵀ, chunk decays),
@@ -70,10 +71,10 @@ SIGNATURES = {
         "ssd_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
         "ssd_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
         # the backward: x, a, b, c, dy, dhf (or null), the forward's states, C·Bᵀ, decays and
-        # final state, dx, da, db, dc, float32 workspaces (state gradients, per-head db and
-        # dc), b, s, h, p, n, chunk, stream
-        "ssd_backward_f32": (_P,) * 17 + (_I,) * 6 + (_P,),
-        "ssd_backward_bf16": (_P,) * 17 + (_I,) * 6 + (_P,),
+        # final state, dx, da, db, dc, a float32 workspace (the state gradients), b, s, h,
+        # p, n, chunk, stream
+        "ssd_backward_f32": (_P,) * 15 + (_I,) * 6 + (_P,),
+        "ssd_backward_bf16": (_P,) * 15 + (_I,) * 6 + (_P,),
     },
 }
 

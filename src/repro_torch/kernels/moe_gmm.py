@@ -17,7 +17,8 @@ cores.
 
 The gradient: ``backward`` launches the backward kernel (the same source):
 dxe = dout·weᵀ on the live rows, zero past them, and dwe = xeᵀ·dout summed
-over the live rows only, each accumulated in float32; ``plain_backward`` is the
+over the live rows only, each accumulated in float32 (bf16 on the tensor cores
+through ``wgmma``, in the tiles of ``backward_tile_plan``); ``plain_backward`` is the
 same formula in PyTorch and ``backward_cost`` its work. ``MoeGmmFunction`` is
 the kernel under autograd: its forward is ``moe_gmm`` (``plain`` on a CPU
 tensor), its backward ``backward`` (``plain_backward`` on a CPU tensor), each
@@ -33,13 +34,14 @@ from repro_torch.kernels import _build
 
 __all__ = ["moe_gmm", "plain", "cost", "live_rows", "kernel_for", "tile_plan", "launches",
            "backward", "plain_backward", "backward_cost", "backward_launches", "MoeGmmFunction",
-           "BLOCK_COLS", "MAX_BLOCK_ROWS"]
+           "backward_tile_plan", "BLOCK_COLS", "MAX_BLOCK_ROWS", "BACKWARD_BLOCK_ROWS"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
 backward_launches = 0  # backward kernel launches since the last reset
 
 BLOCK_COLS = 128      # wg::kBM: F columns per block of the tensor-core kernel
 MAX_BLOCK_ROWS = 240  # the largest row tile: 3 products of 80 rows
+BACKWARD_BLOCK_ROWS = 128  # bwd::tc::kBM: output rows a block of the bf16 backward kernel
 
 _ENTRY = {torch.float32: "moe_gmm_f32", torch.bfloat16: "moe_gmm_bf16"}
 _BACKWARD_ENTRY = {torch.float32: "moe_gmm_backward_f32", torch.bfloat16: "moe_gmm_backward_bf16"}
@@ -62,6 +64,17 @@ def tile_plan(rows: int) -> Tuple[int, int]:
         if rows <= most:
             return plan
     return 80, MAX_BLOCK_ROWS // 80
+
+
+def backward_tile_plan(rows: int, d: int, f: int) -> dict:
+    """The bf16 backward kernel's tiles, per product: ``{"dx": ..., "dw": ...}``, each
+    (block columns, (column tiles, row tiles)) of its output (dX [rows, d], dW [d, f])
+    for every expert (the grid's third dim). 256 columns a block (one wgmma m64n256 a
+    warpgroup), 128 where the output has fewer than 256."""
+    def one(m: int, n: int):
+        bn = 256 if n >= 256 else 128
+        return bn, (-(-n // bn), -(-m // BACKWARD_BLOCK_ROWS))
+    return {"dx": one(rows, d), "dw": one(d, f)}
 
 
 def live_rows(live: torch.Tensor, rows: int) -> torch.Tensor:
@@ -188,9 +201,12 @@ def backward(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor],
                        "moe_gmm backward: G must divide the rows")
     dxe, dwe = torch.empty_like(xe), torch.empty_like(we)
     fn = getattr(_build.library("moe_gmm"), _BACKWARD_ENTRY[xe.dtype])
-    _build.check(fn(xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
-                    dout.data_ptr(), dxe.data_ptr(), dwe.data_ptr(), e, rows, groups, d, f,
-                    _build.stream(xe.device)), "moe_gmm backward")
+    args = [xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
+            dout.data_ptr(), dxe.data_ptr(), dwe.data_ptr(), e, rows, groups, d, f]
+    if xe.dtype == torch.bfloat16:
+        plan = backward_tile_plan(rows, d, f)
+        args += [plan["dx"][0], plan["dw"][0]]
+    _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm backward")
     backward_launches += 1
     return dxe, dwe
 

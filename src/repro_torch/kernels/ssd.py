@@ -17,13 +17,16 @@ output pass forms y, each in float32 workspaces that ``workspaces`` allocates.
 
 The gradient: ``backward`` launches the backward kernel (the same source),
 the forward's passes in reverse: the state gradients carried back across the
-chunks from the final state's gradient, a chunk pass that forms dx, da and each
-head's share of db and dc, and a pass that sums the shares over the heads, in
-float32 workspaces that ``backward_workspaces`` allocates. It reads the states
+chunks from the final state's gradient (in the float32 workspace that
+``backward_workspaces`` allocates), a chunk pass that forms dx and da, and a
+pass that walks the heads on chip and writes db and dc. It reads the states
 entering each chunk, C·Bᵀ and the chunk decays that the forward kernel left in
-its workspaces. ``plain_backward`` is the explicit formula in PyTorch,
-``chunked_backward_reference`` the kernel's passes and workspaces in float32
-PyTorch, ``backward_cost`` the work of one call. ``SSDFunction`` is the kernel
+its workspaces. In bf16 its products run on the tensor cores in TF32 (a float32
+intermediate among their operands as two TF32 parts, ``tf32_parts``), in float32
+on the CUDA cores. ``plain_backward`` is the explicit formula in PyTorch,
+``chunked_backward_reference`` the kernel's passes and workspace in float32
+PyTorch (with ``tf32=True`` the bf16 kernel's operand rounding),
+``backward_cost`` the work of one call. ``SSDFunction`` is the kernel
 under autograd: its forward is the kernel (``plain`` on a CPU tensor), which
 saves its workspaces, its backward ``backward`` (``plain_backward`` on a CPU
 tensor), each backward call a kernel scope of its own for the counters.
@@ -39,7 +42,7 @@ from repro_torch.kernels import _build
 __all__ = ["ssd", "plain", "cost", "sequential", "chunked_reference", "workspaces", "launches",
            "forward_with_workspaces", "backward", "plain_backward", "chunked_backward_reference",
            "backward_workspaces", "backward_cost", "backward_launches", "SSDFunction",
-           "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE"]
+           "round_tf32", "tf32_parts", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
 backward_launches = 0  # backward kernel launches since the last reset
@@ -298,44 +301,78 @@ def plain_backward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.T
 
 
 def backward_workspaces(bsz: int, s: int, h: int, p: int, n: int, l: int, device: torch.device
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's float32 workspaces for chunks of ``l``: the state
-    gradients [B, nc, H, P, N] (each chunk's contribution, then the gradient of the
-    state leaving it) and each head's share of db and of dc [B, nc, H, l, N]."""
-    nc = s // l
-    return (torch.empty((bsz, nc, h, p, n), dtype=torch.float32, device=device),
-            torch.empty((bsz, nc, h, l, n), dtype=torch.float32, device=device),
-            torch.empty((bsz, nc, h, l, n), dtype=torch.float32, device=device))
+                        ) -> Tuple[torch.Tensor]:
+    """The backward kernel's float32 workspace for chunks of ``l``: the state gradients
+    [B, nc, H, P, N] (each chunk's contribution, then the gradient of the state leaving
+    it)."""
+    return (torch.empty((bsz, s // l, h, p, n), dtype=torch.float32, device=device),)
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32, 10 mantissa bits, to nearest with ties away from zero:
+    what ``cvt.rna.tf32.f32`` gives the bf16 backward kernel's tensor-core operands."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_parts(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 intermediate as the bf16 backward kernel feeds it to the tensor cores:
+    two TF32 numbers, hi = rna(t) and lo = rna(t - hi)."""
+    hi = round_tf32(t)
+    return hi, round_tf32(t - hi)
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, split_a: bool, split_b: bool,
+             tf32: bool) -> torch.Tensor:
+    """``einsum(eq, a, b)``; with ``tf32`` as the bf16 kernel's tensor cores form it: a
+    split operand (a float32 intermediate) as its two TF32 parts, the other exact, the
+    lo·lo term dropped."""
+    if not tf32 or not (split_a or split_b):
+        return torch.einsum(eq, a, b)
+    ah, al = tf32_parts(a) if split_a else (a, None)
+    bh, bl = tf32_parts(b) if split_b else (b, None)
+    out = torch.einsum(eq, ah, bh)
+    if al is not None:
+        out = out + torch.einsum(eq, al, bh)
+    if bl is not None:
+        out = out + torch.einsum(eq, ah, bl)
+    return out
 
 
 def chunked_backward_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                                c: torch.Tensor, dy: torch.Tensor, dhf: Optional[torch.Tensor],
                                chunk: int, saved: Optional[Tuple[torch.Tensor, ...]] = None,
-                               ws: Optional[Tuple[torch.Tensor, ...]] = None
+                               ws: Optional[Tuple[torch.Tensor, ...]] = None, tf32: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's passes in float32 PyTorch, with its workspace layout:
     ``saved`` is what the forward leaves (its three workspaces filled as
     ``chunked_reference`` fills them, and the final state; None: computed here),
-    ``ws`` (as ``backward_workspaces`` makes them) is filled as the kernel fills it.
+    ``ws`` (as ``backward_workspaces`` makes it) is filled as the kernel fills it.
+    With ``tf32`` each product is formed as the bf16 kernel forms it on the tensor
+    cores: an operand that is a float32 intermediate as its two TF32 parts
+    (``tf32_parts``), x, dy, b and c as they are (bf16 values are exact in TF32).
     (dx in x's dtype, da float32, db and dc in b's dtype).
 
-    The chunk pass writes dx_j = Σ_{i>=j} L_ij (C·Bᵀ)_ij dy_i + exp(cum_last -
-    cum_j)·G b_j and, with y recomputed in float32, the gradient of cum_i as
-    dy_i·y_i - x_i·dx_i, plus <G, H_next> at the chunk's last step (every term of
-    y_i scales with exp(cum_i), of dx_j with exp(-cum_j), and the state leaving the
-    chunk with exp(cum_last))."""
+    The dx pass writes dx_j = Σ_{i>=j} L_ij (C·Bᵀ)_ij dy_i + exp(cum_last -
+    cum_j)·G b_j and, with y recomputed, the gradient of cum_i as dy_i·y_i -
+    x_i·dx_i, plus <G, H_next> at the chunk's last step (every term of y_i scales with
+    exp(cum_i), of dx_j with exp(-cum_j), and the state leaving the chunk with
+    exp(cum_last)). The db/dc pass sums over the heads first, V = Σ_h L_h ⊙ dY_h·X_hᵀ,
+    then dc = V·B + Σ_h (exp(cum_h) ⊙ dY_h)·H_h and db = Vᵀ·C + Σ_h (exp(cum_last_h -
+    cum_h) ⊙ X_h)·G_h: b and c are shared by the heads."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     l = min(chunk, s)
     if s % l:
         raise ValueError(f"ssd: S = {s} is not a multiple of chunk = {l}")
     nc = s // l
+    mm = lambda eq, u, v, su, sv: _product(eq, u, v, su, sv, tf32)  # noqa: E731
     if saved is None:
         fws = workspaces(bsz, s, h, p, n, l, x.device)
         _, hf = chunked_reference(x, a, b, c, chunk, fws)
         saved = (*fws, hf)
     states, cbt, decay, hf = saved
-    dstates, dbh, dch = ws if ws is not None else backward_workspaces(bsz, s, h, p, n, l, x.device)
+    (dstates,) = ws if ws is not None else backward_workspaces(bsz, s, h, p, n, l, x.device)
     xc = x.float().reshape(bsz, nc, l, h, p)
     dyc = dy.float().reshape(bsz, nc, l, h, p)
     cum = a.float().reshape(bsz, nc, l, h).cumsum(dim=2)                  # [B, nc, l, H]
@@ -343,7 +380,7 @@ def chunked_backward_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     ecum = torch.exp(cum)
     dec = torch.exp(decay[:, :, None] - cum)                              # [B, nc, l, H]
     # 1. chunk pass: each chunk's contribution Σ_i exp(cum_i)·dy_iᵀc_i
-    dstates.copy_(torch.einsum("bclhp,bcln->bchpn", dyc * ecum[..., None], cc))
+    dstates.copy_(mm("bclhp,bcln->bchpn", dyc * ecum[..., None], cc, True, False))
     # 2. state pass, in reverse: dstates[:, c] <- the gradient of the state leaving chunk c
     grad = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
             if dhf is None else dhf.float())
@@ -356,24 +393,22 @@ def chunked_backward_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     cumt = cum.transpose(2, 3)                                            # [B, nc, H, l]
     L = torch.exp(torch.where(tri, cumt[..., :, None] - cumt[..., None, :], NEG_INF))
     w = L * cbt.transpose(2, 3)[:, :, None]                               # [B, nc, H, i, j]
-    y = (torch.einsum("bchij,bcjhp->bcihp", w, xc)
-         + torch.einsum("bcin,bchpn->bcihp", cc, states) * ecum[..., None])
-    dx = (torch.einsum("bchij,bcihp->bcjhp", w, dyc)
-          + torch.einsum("bcjn,bchpn->bcjhp", bc, dstates) * dec[..., None])
+    y = (mm("bchij,bcjhp->bcihp", w, xc, True, False)
+         + mm("bcin,bchpn->bcihp", cc, states, False, True) * ecum[..., None])
+    dx = (mm("bchij,bcihp->bcjhp", w, dyc, True, False)
+          + mm("bcjn,bchpn->bcjhp", bc, dstates, False, True) * dec[..., None])
     nxt = torch.cat([states[:, 1:], hf[:, None]], dim=1)                  # the state leaving c
     dcum = (dyc * y).sum(dim=-1) - (xc * dx).sum(dim=-1)                  # [B, nc, l, H]
     dcum[:, :, -1] += (dstates * nxt).sum(dim=(-1, -2))
     da = dcum.flip(2).cumsum(dim=2).flip(2)
-    # 4. chunk pass: each head's share of dc and db
-    v = L * torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
-    dch.copy_(torch.einsum("bchij,bcjn->bchin", v, bc)
-              + torch.einsum("bcihp,bchpn->bchin", dyc, states) * ecum.transpose(2, 3)[..., None])
-    dbh.copy_(torch.einsum("bchij,bcin->bchjn", v, cc)
-              + torch.einsum("bcjhp,bchpn->bchjn", xc, dstates) * dec.transpose(2, 3)[..., None])
-    # 5. the heads' shares summed
+    # 4. chunk pass: db and dc, the heads summed on chip
+    v = (L * torch.einsum("bcihp,bcjhp->bchij", dyc, xc)).sum(dim=2)     # [B, nc, i, j]
+    dc = (mm("bcij,bcjn->bcin", v, bc, True, False)
+          + mm("bcihp,bchpn->bcin", dyc * ecum[..., None], states, True, True))
+    db = (mm("bcij,bcin->bcjn", v, cc, True, False)
+          + mm("bcjhp,bchpn->bcjn", xc * dec[..., None], dstates, True, True))
     return (dx.reshape(bsz, s, h, p).to(x.dtype), da.reshape(bsz, s, h),
-            dbh.sum(dim=2).reshape(bsz, s, n).to(b.dtype),
-            dch.sum(dim=2).reshape(bsz, s, n).to(c.dtype))
+            db.reshape(bsz, s, n).to(b.dtype), dc.reshape(bsz, s, n).to(c.dtype))
 
 
 def backward_cost(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,

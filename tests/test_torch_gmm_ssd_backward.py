@@ -32,6 +32,7 @@ from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.launch.hlo_counter import CostCounter  # noqa: E402
 
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+SMS = 132  # an H100's streaming multiprocessors
 
 
 def _tol(dtype):   # tests/test_kernels.py::_tol
@@ -114,6 +115,62 @@ def test_moe_gmm_backward_cost_counts_the_live_rows():
     assert full.flops == 2 * kgmm.cost(xe, we).flops
 
 
+# the training shapes (chip_smoke.py's TRAIN_GMM_CASES), ragged ones and a narrow one
+PLAN_SHAPES = [(64, 1280, 2048, 1024), (64, 1280, 1024, 2048), (128, 640, 4096, 1536),
+               (8, 40, 100, 72), (3, 300, 64, 136), (16, 256, 512, 300), (1, 1, 1, 1),
+               (2, 129, 257, 255)]
+SMEM_LIMIT = 232448  # bytes a block may hold on an H100 (227 KB)
+
+
+def _bwd_source():
+    src = (_build.CSRC / "moe_gmm.cu").read_text()
+    return src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda c: "e{}-r{}-d{}-f{}".format(*c))
+def test_backward_tile_plan_covers_every_output_tile_once(shape):
+    """Each product's grid of 128-row, BN-column tiles covers its output [rows, d] (dX)
+    or [d, f] (dW) exactly once per expert, with a BN the source instantiates."""
+    e, r, d, f = shape
+    plan = kgmm.backward_tile_plan(r, d, f)
+    src = _bwd_source()
+    for kind, (m, n) in (("dx", (r, d)), ("dw", (d, f))):
+        bn, (gx, gy) = plan[kind]
+        assert f"launch_product<k{kind.upper()}, {bn}>" in src
+        assert bn == (256 if n >= 256 else 128)
+        owner = np.zeros((m, n), int)
+        for by in range(gy):
+            for bx in range(gx):
+                owner[by * kgmm.BACKWARD_BLOCK_ROWS:(by + 1) * kgmm.BACKWARD_BLOCK_ROWS,
+                      bx * bn:(bx + 1) * bn] += 1
+        assert (owner == 1).all(), kind
+        assert gy <= 65535
+
+
+def test_backward_tiles_fit_shared_memory_as_the_source_lays_them_out():
+    """The ring (4 stages of a 128 x 64 and a BN x 64 bf16 tile, 1 KB of alignment) and
+    the row flags fit a block's 227 KB, for both BN; the source's constants are the
+    ones the plan assumes, and the epilogue's bf16 tile fits in the ring."""
+    src = _bwd_source()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kBM", "kBK", "kStages")}
+    assert const["kBM"] == kgmm.BACKWARD_BLOCK_ROWS == 128
+    assert "kSmemBytes = kStages * kStage + 1024" in src
+    for bn in (128, 256):
+        ring = const["kStages"] * (const["kBM"] + bn) * const["kBK"] * 2  # bf16 A and B tiles
+        assert ring + 1024 + 128 <= SMEM_LIMIT   # + alignment slack, s_live (a flag a row)
+        assert const["kBM"] * (bn + 8) * 2 <= ring  # the epilogue's bf16 tile
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:3], ids=lambda c: "e{}-r{}-d{}-f{}".format(*c))
+def test_backward_tile_plan_fills_the_card_at_the_training_shapes(shape):
+    """At the training micro-batch's shapes each product has at least ten blocks an SM
+    (one block fits an SM at a time): the last wave's tail is under a tenth."""
+    e, r, d, f = shape
+    for bn, (gx, gy) in kgmm.backward_tile_plan(r, d, f).values():
+        assert e * gx * gy >= 10 * SMS
+
+
 # ---------------------------------------------------------------------- ssd
 SSD_CASES = [  # (B, S, H, P, N, chunk): one chunk, three chunks, a chunk longer than S
     (2, 16, 2, 8, 4, 16),
@@ -160,28 +217,76 @@ def test_ssd_plain_backward_matches_reference_vjp(case, dtype, with_dhf):
 @pytest.mark.parametrize("with_dhf", [True, False], ids=["dhf", "no-dhf"])
 @pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "b{}-s{}-h{}-p{}-n{}-l{}".format(*c))
 def test_chunked_backward_reference_equals_the_formula(case, with_dhf):
-    """The kernel's passes (the gradient of cum from dy·y - x·dx, the heads' shares of db
-    and dc summed last) against the explicit formula, in float32; its workspaces hold
-    the gradient of the state leaving each chunk (dhf for the last) and the shares."""
+    """The kernel's passes (the gradient of cum from dy·y - x·dx, db and dc from the
+    heads' V summed first) against the explicit formula, in float32; its workspace holds
+    the gradient of the state leaving each chunk (dhf for the last)."""
     b, s, h, p, n, chunk = case
     (_, xt), (_, at), (_, bt), (_, ct), (_, gt), (_, ht) = _ssd_inputs(
         np.random.default_rng(32), b, s, h, p, n)
     ht = ht if with_dhf else None
     l = min(chunk, s)
     ws = kssd.backward_workspaces(b, s, h, p, n, l, torch.device("cpu"))
+    assert [tuple(t.shape) for t in ws] == [(b, s // l, h, p, n)]
     got = kssd.chunked_backward_reference(xt, at, bt, ct, gt, ht, chunk, ws=ws)
     want = kssd.plain_backward(xt, at, bt, ct, gt, ht, chunk)
     for name, g, w in zip(("dx", "da", "db", "dc"), got, want):
         top = np.abs(w.numpy()).max()
         np.testing.assert_allclose(g.numpy() / top, w.numpy() / top, rtol=1e-4, atol=1e-5,
                                    err_msg=name)
-    dstates, dbh, dch = ws
+    (dstates,) = ws
     last = torch.zeros((b, h, p, n)) if ht is None else ht
     np.testing.assert_allclose(dstates[:, -1].numpy(), last.numpy())
-    np.testing.assert_allclose(dbh.sum(dim=2).reshape(b, s, n).numpy(), got[2].numpy(), rtol=1e-6,
-                               atol=1e-6)
-    np.testing.assert_allclose(dch.sum(dim=2).reshape(b, s, n).numpy(), got[3].numpy(), rtol=1e-6,
-                               atol=1e-6)
+
+
+def test_round_tf32_is_round_to_nearest_ties_away():
+    """``round_tf32`` keeps 10 mantissa bits as ``cvt.rna.tf32.f32`` does: halfway
+    values go away from zero, either sign; bf16 values pass unchanged. ``tf32_parts``
+    splits a float32 into two TF32 numbers whose sum keeps 21 bits of it."""
+    ulp = 2.0 ** -10
+    t = torch.tensor([1.0, 1 + ulp / 2, 1 + 1.5 * ulp, -(1 + ulp / 2), 1 + ulp / 4, 3.14159265])
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 3.140625]
+    assert kssd.round_tf32(t).tolist() == want
+    v = torch.randn(1000).to(torch.bfloat16).float()
+    assert torch.equal(kssd.round_tf32(v), v)
+    w = torch.randn(1000) * 100
+    assert ((kssd.round_tf32(w) - w).abs() <= w.abs() * 2.0 ** -11).all()
+    hi, lo = kssd.tf32_parts(w)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()  # 13 low mantissa bits clear
+    assert ((hi + lo - w).abs() <= w.abs() * 2.0 ** -21).all()
+    assert (lo != 0).any()
+
+
+# the SSD_CASES and mamba2-130m's widths (P 64, N 128, chunk 128) over two chunks
+TF32_CASES = SSD_CASES + [(1, 256, 2, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("with_dhf", [True, False], ids=["dhf", "no-dhf"])
+@pytest.mark.parametrize("case", TF32_CASES, ids=lambda c: "b{}-s{}-h{}-p{}-n{}-l{}".format(*c))
+def test_chunked_backward_reference_with_tf32_operands_holds_the_bf16_tolerance(case, with_dhf):
+    """The bf16 kernel's passes with its tensor-core operands as it forms them (each
+    float32 intermediate as two TF32 parts), emulated in float32 (``tf32=True``), on
+    bf16 inputs: within the bf16 ``_tol`` of the float32 formula and of ``jax.vjp`` of
+    ``ssd_chunked``, and within 1e-4 of the unrounded passes (relative to each
+    output's largest entry): the parts keep float32's accuracy."""
+    b, s, h, p, n, chunk = case
+    (xj, xt), (aj, at), (bj, bt), (cj, ct), (gj, gt), (hj, ht) = _ssd_inputs(
+        np.random.default_rng(34), b, s, h, p, n, "bfloat16")
+    if not with_dhf:
+        hj, ht = jnp.zeros_like(hj), None
+    l = min(chunk, s)
+    got = kssd.chunked_backward_reference(xt, at, bt, ct, gt, ht, chunk, tf32=True)
+    exact = kssd.chunked_backward_reference(xt, at, bt, ct, gt, ht, chunk)
+    formula = kssd.plain_backward(xt, at, bt, ct, gt, ht, chunk)
+    _, vjp = jax.vjp(lambda *t: jax_ssd_chunked(*t, l), xj, aj, bj, cj)
+    ref = vjp((gj, hj))
+    for name, g, w, r, e in zip(("dx", "da", "db", "dc"), got, formula, ref, exact):
+        w, r = to_numpy(w).astype(np.float32), np.asarray(r, np.float32)
+        top = 1.0 if name == "dx" else np.abs(w).max()
+        if name == "da":  # dx, db and dc are rounded to bf16, da float32
+            np.testing.assert_allclose(g.numpy() / top, e.numpy() / top, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(to_numpy(g) / top, w / top, err_msg=name, **_tol("bfloat16"))
+        np.testing.assert_allclose(to_numpy(g) / top, r / top, err_msg=name, **_tol("bfloat16"))
 
 
 def test_chunked_backward_reference_takes_the_forwards_workspaces():
@@ -294,15 +399,18 @@ def test_the_functions_save_what_their_backward_reads():
 
 def test_backward_entries_have_their_ctypes_signatures():
     """The wrappers' backward entries are C entries of their sources with the
-    signatures ``_build.SIGNATURES`` gives them (``moe_gmm``: 6 pointers, 5 ints;
-    ``ssd``: 17 pointers, 6 ints; each then the stream)."""
+    signatures ``_build.SIGNATURES`` gives them (``moe_gmm``: 6 pointers, 5 ints, and
+    in bf16 the two products' block columns; ``ssd``: 15 pointers (one workspace), 6
+    ints; each then the stream)."""
     ctype = {"const void*": _build._P, "void*": _build._P, "int": _build._I}
-    for lib, entries, n_ptr, n_int in (("moe_gmm", kgmm._BACKWARD_ENTRY, 6, 5),
-                                       ("ssd", kssd._BACKWARD_ENTRY, 17, 6)):
+    ints = {("moe_gmm", torch.float32): 5, ("moe_gmm", torch.bfloat16): 7}
+    for lib, entries, n_ptr in (("moe_gmm", kgmm._BACKWARD_ENTRY, 6),
+                                ("ssd", kssd._BACKWARD_ENTRY, 15)):
         src = (_build.CSRC / f"{lib}.cu").read_text()
         protos = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
         assert set(entries) == {torch.float32, torch.bfloat16}
-        for entry in entries.values():
+        for dtype, entry in entries.items():
+            n_int = ints.get((lib, dtype), 6)
             want = (_build._P,) * n_ptr + (_build._I,) * n_int + (_build._P,)
             assert _build.SIGNATURES[lib][entry] == want, entry
             types = tuple(ctype[" ".join(q.split()[:-1])] for q in protos[entry].split(","))
