@@ -97,8 +97,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      granite-8b at full width cut to 4 of 36 layers (seq 1024 x batch 4,
      remat "full", 3 steps, deterministic algorithms) against
      ``build_train_step``: losses, grad norms and every leaf bitwise equal,
-     exact counts; (c) ``compress_psum`` over the NCCL group on (b)'s
-     gradient leaves, equal to ``tree_compress_with_feedback`` bitwise.
+     exact counts; the same with grad_accum 2 and with int8 compression, and
+     mamba2-130m whole with grad_accum 2 (2 steps); (c) ``compress_psum`` over
+     the NCCL group on (b)'s gradient leaves, equal to
+     ``tree_compress_with_feedback`` bitwise.
   9. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch all --shape all --mesh
      both`` as a child process (the production meshes on torch's fake process
      group, ``meta`` tensors): no cell fails, the skipped cells are exactly the
@@ -210,9 +212,14 @@ LAUNCH_TRAIN_SSM = ("mamba2-130m", (10, 15), ("--seq", "1024", "--batch", "8", "
 # phase 8 (sharded): the sharded steps on a (1, 1) NCCL mesh against the plain steps on the
 # same weights, bitwise. (a) granite-8b whole, a prefill of 4 prompts in a 1024 cache, then
 # 16 decode steps; (b) ZeRO-3 training of granite-8b at full width cut to 4 of 36 layers,
-# seq 1024 x batch 4, 3 steps, remat "full", under deterministic algorithms
+# seq 1024 x batch 4, 3 steps, remat "full", under deterministic algorithms, under each of
+# SHARDED_TRAIN_PLANS (the plan's changes to the default); then mamba2-130m whole with
+# grad_accum 2, SHARDED_SSM_STEPS steps (the ssd kernels' DTensor route, accumulated)
 SHARDED_ARCH, SHARDED_PROMPTS, SHARDED_DECODE = "granite-8b", 4, 16
 SHARDED_TRAIN_LAYERS, SHARDED_TRAIN_SEQ, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 1024, 4, 3
+SHARDED_TRAIN_PLANS = (("default", {}), ("grad_accum 2", {"grad_accum": 2}),
+                       ("int8 compression", {"compress_grads": True}))
+SHARDED_SSM_ARCH, SHARDED_SSM_STEPS = "mamba2-130m", 2
 # phase 9: the dry-run's grid (one worker process a core), and the timed repeats of each
 # step in (b)
 DRYRUN_MESH, DRYRUN_TIMEOUT_S, DRYRUN_REPEATS = "both", 480, 3
@@ -2304,88 +2311,116 @@ def sharded_serve(torch, mesh, card: str):
     return counts
 
 
-def sharded_train(torch, mesh, card: str):
-    """(b) ``jit_train_step`` with ZeRO-3 on granite-8b at full width cut to
-    ``SHARDED_TRAIN_LAYERS`` layers (seq ``SHARDED_TRAIN_SEQ`` x batch ``SHARDED_TRAIN_BATCH``,
-    remat "full") against ``build_train_step`` from the same initial state, under
-    deterministic algorithms: each step's loss and grad norm and, after the last, every
-    leaf of the parameters and moments bitwise equal; exact launch counts. (c)
-    ``compress_psum`` over the mesh's process group on the gradient leaves of the
-    trained state, against ``tree_compress_with_feedback``: the mean and the residual
-    bitwise equal. Returns the sharded run's counts."""
-    import os
-
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    from repro_torch.config.parallel import ParallelPlan
+def sharded_train_pair(torch, mesh, card: str, cfg, plan, what: str, steps: int):
+    """``jit_train_step`` on ``mesh`` against ``build_train_step`` with the same ``plan``
+    from the same initial state (seq ``SHARDED_TRAIN_SEQ`` x batch ``SHARDED_TRAIN_BATCH``),
+    under deterministic algorithms (the caller's): each step's loss and grad norm and,
+    after the last, every leaf of the parameters, moments and residual bitwise equal;
+    the sharded run's launch counts exact. Returns (the counts, the sharded run's state,
+    the batch placed by the step's batch placements)."""
     from repro_torch.config.shapes import ShapeConfig
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.common import tree_items
     from repro_torch.models.model import build
     from repro_torch.sharding.rules import gather, place_tree
-    from repro_torch.training import compress
     from repro_torch.training.data import make_batch, to_device
     from repro_torch.training.train_step import build_train_step, init_train_state, jit_train_step
 
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    cfg = get_config(SHARDED_ARCH).replace(num_layers=SHARDED_TRAIN_LAYERS)
     api = build(cfg, device="cuda")
-    plan = ParallelPlan(remat="full", zero3=True).restrict_to(mesh.mesh_dim_names)
     shape = ShapeConfig("sharded", seq_len=SHARDED_TRAIN_SEQ, global_batch=SHARDED_TRAIN_BATCH,
                         kind="train")
     batch = to_device(make_batch(cfg, shape, 0), "cuda", torch.bfloat16)
     kw = dict(lr=TRAIN_LR, warmup_steps=2, total_steps=100)
     init = lambda: init_train_state(api, torch.Generator(device="cuda").manual_seed(0), plan)
     fn, _, state_sh, batch_sh = jit_train_step(api, plan, mesh, batch, **kw)
-    L = SHARDED_TRAIN_LAYERS
-    expected = {"rmsnorm": SHARDED_TRAIN_STEPS * (4 * L + 1),
-                "flash_attention": SHARDED_TRAIN_STEPS * 2 * L, "decode_attention": 0,
-                "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
+    expected = {k: steps * n for k, n in train_launches(cfg, max(1, plan.grad_accum)).items()}
+
+    def train(step):
+        state, out = init(), []
+        for _ in range(steps):
+            (state, m), _, h_ms = _event_ms(torch, lambda: step(state, batch))
+            out.append((gather(m["loss"]).item(), gather(m["grad_norm"]).item(), h_ms))
+        return state, out
+
+    plain_state, plain_out = train(build_train_step(api, plan, **kw))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, out = train(fn)
+    counts = ops.launch_counts()
+    leaves = lambda st: [x for tree in (st.params, st.opt.mu, st.opt.nu,
+                                        st.residual.residual if st.residual else {})
+                         for _, x in tree_items(tree)]
+    same = sum(bool(torch.equal(gather(a), b)) for a, b in zip(leaves(state), leaves(plain_state)))
+    n_leaves = len(leaves(plain_state))
+    emb = state.params["embed"]
+    del plain_state
+    gc.collect()
+    metrics_equal = [a[:2] == b[:2] for a, b in zip(out, plain_out)]
+    ok = all(metrics_equal) and same == n_leaves and counts == expected
+    log(f"[sharded] (b) train {cfg.name} ({cfg.num_layers} layers, "
+        f"{api.param_count() / 1e9:.3f} B params), {what}: remat {plan.remat}, ZeRO-3, "
+        f"grad_accum {plan.grad_accum}, compress_grads {plan.compress_grads}, on a (1, 1) NCCL "
+        f"mesh, {SHARDED_TRAIN_BATCH} x {SHARDED_TRAIN_SEQ} tokens, deterministic: loss and "
+        f"grad norm bitwise equal in {sum(metrics_equal)} of {steps} steps (losses "
+        f"{[o[0] for o in out]}), leaves (params, mu, nu{', residual' * plan.compress_grads}) "
+        f"bitwise equal {same} of {n_leaves}; embed {tuple(emb.shape)} placed "
+        f"{tuple(emb.placements)}; step ms (host, synchronised) DTensor "
+        f"{[round(o[2], 1) for o in out]}, plain {[round(o[2], 1) for o in plain_out]}; "
+        "launches " + ", ".join(f"{k} {counts[k]} (expected {n})" for k, n in expected.items())
+        + f" {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        raise AssertionError(f"sharded train ({cfg.name}, {what}): metrics equal "
+                             f"{metrics_equal}, {same} of {n_leaves} leaves equal, counts "
+                             f"{counts} != {expected}")
+    return counts, api, state, place_tree(batch, batch_sh)
+
+
+def sharded_train(torch, mesh, card: str):
+    """(b) ``sharded_train_pair`` on granite-8b at full width cut to
+    ``SHARDED_TRAIN_LAYERS`` layers under each of ``SHARDED_TRAIN_PLANS`` (remat "full",
+    ZeRO-3), then on mamba2-130m whole with grad_accum 2. (c) ``compress_psum`` over the
+    mesh's process group on the gradient leaves of (b)'s first trained state, against
+    ``tree_compress_with_feedback``: the mean and the residual bitwise equal. Returns the
+    sharded runs' counts, summed."""
+    import os
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_items
+    from repro_torch.training import compress
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    plan = ParallelPlan(remat="full", zero3=True).restrict_to(mesh.mesh_dim_names)
+    granite = get_config(SHARDED_ARCH).replace(num_layers=SHARDED_TRAIN_LAYERS)
+    total: dict = {}
     torch.use_deterministic_algorithms(True)
     try:
-        def train(step):
-            state, out = init(), []
-            for _ in range(SHARDED_TRAIN_STEPS):
-                (state, m), _, h_ms = _event_ms(torch, lambda: step(state, batch))
-                out.append((gather(m["loss"]).item(), gather(m["grad_norm"]).item(), h_ms))
-            return state, out
+        kept = None
+        runs = [(granite, dataclasses.replace(plan, **change), what, SHARDED_TRAIN_STEPS)
+                for what, change in SHARDED_TRAIN_PLANS]
+        runs.append((get_config(SHARDED_SSM_ARCH), dataclasses.replace(plan, grad_accum=2),
+                     "grad_accum 2", SHARDED_SSM_STEPS))
+        for cfg, run_plan, what, steps in runs:
+            counts, api, state, batch = sharded_train_pair(torch, mesh, card, cfg, run_plan,
+                                                           what, steps)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            if kept is None:
+                kept = (api, state, batch)
+            del api, state, batch
+            gc.collect()
+            torch.cuda.empty_cache()
 
-        plain_state, plain_out = train(build_train_step(api, plan, **kw))
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        state, out = train(fn)
-        counts = ops.launch_counts()
-        leaves = lambda st: [x for tree in (st.params, st.opt.mu, st.opt.nu)
-                             for _, x in tree_items(tree)]
-        same = sum(bool(torch.equal(gather(a), b))
-                   for a, b in zip(leaves(state), leaves(plain_state)))
-        n_leaves = len(leaves(plain_state))
-        emb = state.params["embed"]
-        del plain_state
-        gc.collect()
-        metrics_equal = [a[:2] == b[:2] for a, b in zip(out, plain_out)]
-        ok = all(metrics_equal) and same == n_leaves and counts == expected
-        log(f"[sharded] (b) train {cfg.name} ({L} of {get_config(SHARDED_ARCH).num_layers} "
-            f"layers, {api.param_count() / 1e9:.3f} B params) with ZeRO-3 on a (1, 1) NCCL mesh, "
-            f"{SHARDED_TRAIN_BATCH} x {SHARDED_TRAIN_SEQ} tokens, remat full, deterministic: "
-            f"loss and grad norm bitwise equal in {sum(metrics_equal)} of {SHARDED_TRAIN_STEPS} "
-            f"steps (losses {[o[0] for o in out]}), leaves (params, mu, nu) bitwise equal {same} "
-            f"of {n_leaves}; embed {tuple(emb.shape)} placed {tuple(emb.placements)}; step ms "
-            f"(host, synchronised) DTensor {[round(o[2], 1) for o in out]}, plain "
-            f"{[round(o[2], 1) for o in plain_out]}; launches " + ", ".join(
-                f"{k} {counts[k]} (expected {n})" for k, n in expected.items())
-            + f" {'ok' if ok else 'FAIL'} on {card}")
-        if not ok:
-            raise AssertionError(f"sharded train: metrics equal {metrics_equal}, {same} of "
-                                 f"{n_leaves} leaves equal, counts {counts} != {expected}")
-
-        # (c) the gradient leaves of the trained state, through the sharded loss
+        # (c) the gradient leaves of the first trained state, through the sharded loss
+        api, state, batch = kept
+        del kept
         params = state.params
         for _, p in tree_items(params):
             p.requires_grad_(True)
         with implicit_replication():
-            loss = api.train_loss(params, place_tree(batch, batch_sh), remat=plan.remat)
+            loss = api.train_loss(params, batch, remat=plan.remat)
             grads = torch.autograd.grad(loss, [p for _, p in tree_items(params)])
         grads = {path: g.to_local() for (path, _), g in zip(tree_items(params), grads)}
         del loss, state, params
@@ -2410,7 +2445,7 @@ def sharded_train(torch, mesh, card: str):
         torch.use_deterministic_algorithms(False)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return total
 
 
 def phase_sharded(torch, card: str):

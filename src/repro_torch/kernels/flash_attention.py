@@ -41,8 +41,13 @@ MAX_HEAD_DIM = 128  # simt::kMaxDh; the tensor-core kernel takes WGMMA_HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 128)
 
 # float32 bytes of one block of P (and of each of its same-sized companions S, dP,
-# dS) in the backward: granite-8b's [2, 32, 4096, 4096] would be 4.3 GB in one piece
+# dS) in the backward: granite-8b's [2, 32, 4096, 4096] would be 4.3 GB in one piece;
+# and at most BACKWARD_BLOCK_ROWS query positions a block, so that a causal block's
+# masked pairs, which it multiplies all the same, stay a small share at any batch
+# (whisper-base's train_4k backward at 2 sequences a rank: 1024-row blocks multiply
+# 1.25x the causal pairs, 512-row blocks 1.12x)
 BACKWARD_BLOCK_BYTES = 256 << 20
+BACKWARD_BLOCK_ROWS = 512
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _WGMMA = "flash_attention_bf16_wgmma"
@@ -122,10 +127,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     products run in the input dtype and sum into float32, and the values round to
     it where the reference's differentiated ``chunked_attention`` rounds them:
     Q·Kᵀ before the scale, P before dV, scale·dS before dQ and dK. Query rows go
-    in blocks whose float32 P holds at most ``BACKWARD_BLOCK_BYTES``; a block reads
-    only the keys its mask can allow. A query row that allows no key (one at or
-    past Sk + window - 1, which needs a window and Sq > Sk) gets no gradient and
-    passes none to K and V.
+    in blocks of at most ``BACKWARD_BLOCK_ROWS`` positions whose float32 P holds at
+    most ``BACKWARD_BLOCK_BYTES``; a block reads only the keys its mask can allow.
+    A query row that allows no key (one at or past Sk + window - 1, which needs a
+    window and Sq > Sk) gets no gradient and passes none to K and V.
     """
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -143,7 +148,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     dk = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
     dv = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
     live_rows = min(sq, sk + window - 1) if window > 0 else sq
-    rows = max(1, BACKWARD_BLOCK_BYTES // (4 * b * hq * max(sk, 1)))
+    rows = max(1, min(BACKWARD_BLOCK_ROWS, BACKWARD_BLOCK_BYTES // (4 * b * hq * max(sk, 1))))
     scale_f32 = torch.full((1,), scale, dtype=torch.float32, device=dev)
     for q0 in range(0, live_rows, rows):
         q1 = min(live_rows, q0 + rows)

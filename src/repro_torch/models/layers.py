@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.constraints import reduce_partial, shard_act, take_last, take_rows
+from repro_torch.sharding.constraints import (place_head, reduce_partial, shard_act, take_last,
+                                              take_rows)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -85,7 +86,7 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, tc: torch.Tensor,
                 mc: torch.Tensor) -> torch.Tensor:
     """Sum over one chunk of ``mc``-weighted token losses, float32."""
-    logits = shard_act((hc @ lm_head).float(), "bsv")        # [B, chunk, V]
+    logits = shard_act((hc @ place_head(lm_head, hc)).float(), "bsv")   # [B, chunk, V]
     gold = take_last(logits, tc.long())
     return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
 

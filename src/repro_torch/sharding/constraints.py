@@ -18,9 +18,10 @@ of DTensor that XLA's partitioner does not have: an uneven unflatten of
 heads (forward or backward), and a sharded bias added to a ``Partial``
 product.
 
-``local_span``, ``take_rows`` and ``take_last`` are helpers of the model's
-own code on shards: an embedding lookup and a gather along the vocabulary
-run on local shards, as the plain path runs them, where DTensor's own
+``place_head`` keeps the LM head's product batch-sharded where DTensor would
+trade that for a smaller collective. ``local_span``, ``take_rows`` and ``take_last`` are
+helpers of the model's own code on shards: an embedding lookup and a gather
+along the vocabulary run on local shards, as the plain path runs them, where DTensor's own
 sharding rules for ``index``/``gather`` and their gradients fail in some
 torch versions. ``unshard(x, dim)`` is not a constraint of the reference:
 it replicates a DTensor along one dim before a scan over it. DTensor
@@ -38,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.sharding.rules import Spec, mesh_axes, placements
 
@@ -201,43 +203,67 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
 
 
 def local_span(t: DTensor, dim: int):
-    """(offset, length) of this rank's shard of ``t`` along ``dim``; mesh
-    dimensions that shard one tensor dim split it outermost first, as
-    ``distribute_tensor`` does."""
-    mesh, n, off = t.device_mesh, t.shape[dim], 0
-    for i, p in enumerate(t.placements):
-        if p == Shard(dim):
-            n //= mesh.size(i)
-            off += mesh.get_local_rank(i) * n
-    return off, n
+    """(offset, length) of this rank's shard of ``t`` along ``dim``, as DTensor lays
+    it out: mesh dimensions that shard one tensor dim split it outermost first, and a
+    dim that does not divide gives the last shards fewer (or no) rows."""
+    shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    return offset[dim], shape[dim]
+
+
+def place_head(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The LM head ``w`` [D, V] placed for the product ``x @ w`` with rows ``x``
+    [..., D]: each mesh dimension that shards ``x``'s batch (dim 0) replicates ``w``
+    (an all-gather: ZeRO-3's gather of a weight), and each that shards neither splits
+    ``w``'s vocabulary, so the logits keep the batch's sharding and each model rank
+    takes its span of the vocabulary (an uneven one where V does not divide).
+
+    DTensor picks a product's placements by the bytes each choice moves, not the work
+    it leaves on each rank: on hymba-1.5b's micro-batches of 64 sequences on 16 data
+    ranks (``train_4k``, grad_accum 4) it all-gathered each rank's 4 rows rather than
+    the tied 1600 x 32001 head sharded along its embed dim, and every data rank
+    multiplied all 64 sequences by the whole vocabulary (1.15x the step's FLOPs of
+    grad_accum 1)."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return w
+    last = w.dim() - 1
+    want = tuple(Replicate() if xp == Shard(0) else
+                 Shard(last) if isinstance(xp, Replicate) and isinstance(wp, Replicate)
+                 and w.device_mesh.size(i) > 1 else wp
+                 for i, (xp, wp) in enumerate(zip(x.placements, w.placements)))
+    return w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
 
 
 def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[..., idx]`` along the last dim: ``idx`` [...] int64, one index a row.
 
-    On a DTensor sharded along the last dim (vocab-sharded logits) each rank
-    picks the indices in its span and contributes 0 for the others: a
-    ``Partial`` sum over those mesh dimensions. DTensor's own ``gather`` there
-    (torch 2.13) yields a masked partial whose reduction fails beside another
-    DTensor ("too many indices for tensor of dimension 2")."""
+    On a DTensor sharded along the last dim (vocab-sharded logits) or ``Partial``
+    (logits of replicated rows times a head sharded along the contracted dim) the
+    gather runs on local shards: a rank picks the indices in its span of the last
+    dim and contributes 0 for the others, a ``Partial`` sum over those mesh
+    dimensions, and a ``Partial`` input stays ``Partial`` (a gather is linear), its
+    gradient replicated. DTensor's own ``gather`` (torch 2.13) yields a masked
+    partial in both cases, and its reduction fails once the gathered dim is dropped
+    ("too many indices for tensor of dimension 2")."""
     last = x.dim() - 1
-    if not isinstance(x, DTensor) or Shard(last) not in x.placements:
+    if not isinstance(x, DTensor) or not any(p == Shard(last) or isinstance(p, Partial)
+                                             for p in x.placements):
         return torch.gather(x, -1, idx[..., None])[..., 0]
     mesh = x.device_mesh
     rows = tuple(p if isinstance(p, Shard) and p.dim < last else Replicate() for p in x.placements)
+    keep = tuple(p if p == Shard(last) or isinstance(p, Partial) else r
+                 for p, r in zip(x.placements, rows))
     idx = idx if isinstance(idx, DTensor) else DTensor.from_local(
         idx, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-    xl = x.redistribute(mesh, tuple(p if p == Shard(last) else r
-                                    for p, r in zip(x.placements, rows))).to_local()
+    xl = x.redistribute(mesh, keep).to_local(grad_placements=tuple(
+        Replicate() if isinstance(p, Partial) else p for p in keep))
     il = idx.redistribute(mesh, rows).to_local()
     off, n = local_span(x, last)
     il = il - off
     here = (il >= 0) & (il < n)
     got = torch.gather(xl, -1, il.clamp(0, n - 1)[..., None])[..., 0]
     got = torch.where(here, got, torch.zeros((), dtype=got.dtype, device=got.device))
-    return DTensor.from_local(got, mesh, tuple(Partial() if p == Shard(last) else r
-                                               for p, r in zip(x.placements, rows)),
-                              run_check=False)
+    return DTensor.from_local(got, mesh, tuple(Partial() if p == Shard(last) else p
+                                               for p in keep), run_check=False)
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -31,10 +31,11 @@ as ``adamw_init`` makes it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config.parallel import ParallelPlan
@@ -86,12 +87,62 @@ def make_train_state_specs(api: ModelApi, plan: ParallelPlan, mesh) -> Tuple[Tra
     return abstract, placements
 
 
-def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int):
+def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int, plan: ParallelPlan):
+    """The ``accum`` micro-batches of ``batch``: micro-batch ``i`` holds rows
+    ``[i*n, (i+1)*n)`` of every leaf, ``n = B / accum``, as the reference's
+    ``reshape(accum, n)`` gives them.
+
+    A plain tensor is sliced. A DTensor leaf (the batch ``jit_train_step`` placed)
+    gives micro-batches placed as a batch of ``n`` rows is (``rules.batch_sharding``),
+    so each data rank holds ``n / data`` rows of each and the forward runs sharded.
+    The leaf is first redistributed to those placements (an all-gather over the data
+    axes that a batch of ``n`` sheds, else nothing); then one all-to-all over the data
+    axes left moves each rank's rows to the rank whose share of its micro-batch they
+    are: a rank sends and receives ``B / data`` rows a step. (DTensor's own slice of a
+    sharded dim comes back replicated, and every data rank would run every micro-batch
+    whole.)"""
     for key, x in batch.items():
         if x.shape[0] % accum:
             raise ValueError(f"batch {x.shape[0]} ({key}) not divisible by grad_accum {accum}")
-    n = next(iter(batch.values())).shape[0] // accum
-    return [{k: x[i * n:(i + 1) * n] for k, x in batch.items()} for i in range(accum)]
+    if accum == 1:
+        return [dict(batch)]
+    parts = {k: _microbatch_rows(x, accum, plan) for k, x in batch.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(accum)]
+
+
+def _microbatch_rows(x: torch.Tensor, accum: int, plan: ParallelPlan):
+    n = x.shape[0] // accum
+    if not isinstance(x, DTensor):
+        return [x[i * n:(i + 1) * n] for i in range(accum)]
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor, all_to_all_single
+
+    from repro_torch.sharding.constraints import local_span
+    from repro_torch.sharding.rules import batch_sharding
+
+    mesh, rest = x.device_mesh, tuple(x.shape[1:])
+    target = batch_sharding(plan, mesh, n).placements
+    x = x.redistribute(mesh, target)
+    dims = [k for k, p in enumerate(target) if p == Shard(0) and mesh.size(k) > 1]
+    ways = math.prod(mesh.size(k) for k in dims)
+    local, m = x.to_local(), n // ways
+    if ways > 1:
+        # rank s holds blocks s*accum + j (m rows each); block b belongs to micro-batch
+        # b // ways, on rank b % ways. Sent grouped by rank, received in micro-batch order.
+        s = local_span(x, 0)[0] // local.shape[0]
+        dest = [(s * accum + j) % ways for j in range(accum)]
+        order = sorted(range(accum), key=dest.__getitem__)
+        src = [(i * ways + s) // accum for i in range(accum)]
+        group = (mesh, dims[0]) if len(dims) == 1 else \
+            mesh[tuple(mesh.mesh_dim_names[k] for k in dims)]._flatten()
+        local = all_to_all_single(
+            torch.cat([local[j * m:(j + 1) * m] for j in order]),
+            [m * src.count(r) for r in range(ways)], [m * dest.count(r) for r in range(ways)],
+            group)
+        if isinstance(local, AsyncCollectiveTensor):
+            local = local.wait()
+    return [DTensor.from_local(local[i * m:(i + 1) * m], mesh, target, run_check=False,
+                               shape=torch.Size((n, *rest)), stride=x.stride())
+            for i in range(accum)]
 
 
 def build_train_step(api: ModelApi, plan: ParallelPlan, *, lr: float = 3e-4,
@@ -106,7 +157,7 @@ def build_train_step(api: ModelApi, plan: ParallelPlan, *, lr: float = 3e-4,
             p.requires_grad_(True)
         accum = max(1, plan.grad_accum)
         loss_sum, acc = None, None
-        for mb in _split_microbatches(batch, accum):
+        for mb in _split_microbatches(batch, accum, plan):
             loss = api.train_loss(state.params, mb, remat=plan.remat)
             grads = torch.autograd.grad(loss, leaves)
             loss = loss.detach().float()

@@ -13,13 +13,18 @@ of the sharded steps at production size that it found.
   * In a child process on torch's ``fake`` process group (one process holds
     every rank): a sharded matmul counts the local product's FLOPs exactly; an
     L-layer sharded step counts L times one layer's collectives; a training
-    step's norms see a device's share of the batch; a multi-pod mesh's step
+    step's norms see a device's share of the batch, and with grad_accum 2 their
+    share of each micro-batch; the LM head's product keeps the batch's sharding
+    (``constraints.place_head``); a multi-pod mesh's step
     counts as its merged (pod x data, model) view's; one smoke
     config of each family gives a cell that ``benchmarks/roofline.py`` reads
     as ``OK``; granite-8b and whisper-base ``decode_32k`` (heads fewer than
     the 16-way model axis), olmoe-1b-7b ``decode_32k`` (a sequence-sharded
     cache write) and whisper-base ``train_4k`` (the step counter, and the
-    gradients of the heads' reshapes) run on ``make_production_mesh()``; on
+    gradients of the heads' reshapes) run on ``make_production_mesh()``, and so
+    do mamba2-130m and whisper-base ``train_4k`` at grad_accum 4 (smoke widths
+    with their full vocabularies: the tied head's ``Partial`` logits), mamba2's
+    within 5% of the FLOPs of grad_accum 1; on
     ``make_production_mesh(multi_pod=True)``, a batch of 2 (the smallest that
     ``step_mesh`` cannot merge: sharded over "pod" alone) and a plan that names
     "pod" for the tensor dims run on the three-axis mesh, where DTensor's argmax
@@ -48,10 +53,16 @@ ROOT = Path(__file__).resolve().parent.parent
 SMOKE_CELLS = {"granite-8b": "prefill_32k", "olmoe-1b-7b": "prefill_32k",
                "mamba2-130m": "prefill_32k", "hymba-1.5b": "decode_32k",
                "internvl2-76b": "prefill_32k", "whisper-base": "decode_32k"}   # one a family
+# (arch, shape[, grad_accum]): a cell with grad_accum runs the smoke config with the full
+# config's vocabulary (mamba2-130m's 50280, whisper-base's 51865: neither divides the
+# 16-way model axis), which is what made the full configs fail
 FAULT_CELLS = {"F2 granite": ("granite-8b", "decode_32k"),
                "F2 whisper": ("whisper-base", "decode_32k"),
                "F3 olmoe": ("olmoe-1b-7b", "decode_32k"),
-               "F5 whisper": ("whisper-base", "train_4k")}
+               "F5 whisper": ("whisper-base", "train_4k"),
+               "F8 mamba2 accum 4": ("mamba2-130m", "train_4k", 4),
+               "F8 whisper accum 4": ("whisper-base", "train_4k", 4)}
+TRAIN_ACCUM = 2   # granite-8b smoke's train step on the fake (2, 2) mesh, accumulated
 # the multi-pod mesh's cells that step_mesh cannot merge (granite-8b smoke; the plan
 # override, if any): a batch of 2 sharded over "pod" alone, and tensor dims on "pod"
 THREE_AXIS_CELLS = {"batch 2": ("decode", 1024, 2, None),
@@ -73,7 +84,7 @@ def _child(out_dir):
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    from repro_torch.configs import get_smoke
+    from repro_torch.configs import get_config, get_smoke
     from repro_torch.config.shapes import SHAPES
     from repro_torch.launch.dryrun import default_plan, lower_cell, run_cell
     from repro_torch.launch.hlo_counter import corrected_costs
@@ -97,6 +108,11 @@ def _child(out_dir):
                     for arch, shape in SMOKE_CELLS.items()}
     out["train"] = run_cell("granite-8b", "train_4k", mesh, "fake_2x2",
                             cfg=get_smoke("granite-8b"))["cost_corrected"]["kernels"]
+    out["train_accum"] = run_cell(
+        "granite-8b", "train_4k", mesh, "fake_2x2", cfg=get_smoke("granite-8b"),
+        plan=dataclasses.replace(default_plan(SHAPES["train_4k"], mesh), grad_accum=TRAIN_ACCUM)
+    )["cost_corrected"]["kernels"]
+    out["head"] = _head_product(mesh)
     out["band"] = {shape: run_cell("granite-8b", shape, mesh, "fake_2x2",
                                    cfg=get_smoke("granite-8b"))["cost_corrected"]["flops"]
                    for shape in BANDS}
@@ -118,10 +134,16 @@ def _child(out_dir):
                                       cell["cost_corrected"]["hbm_bytes"], cell["collectives_flat"]]
     dist.destroy_process_group()
     mesh = make_production_mesh()
-    out["faults"] = {}
-    for name, (arch, shape) in FAULT_CELLS.items():
+    out["faults"], out["accum_one"] = {}, {}
+    for name, (arch, shape, *accum) in FAULT_CELLS.items():
+        cfg = plan = None
+        if accum:
+            cfg = get_smoke(arch).replace(vocab_size=get_config(arch).vocab_size)
+            plan = dataclasses.replace(default_plan(SHAPES[shape], mesh), grad_accum=accum[0])
+            out["accum_one"][name] = run_cell(arch, shape, mesh, "single_pod_16x16", cfg=cfg)
         try:
-            out["faults"][name] = run_cell(arch, shape, mesh, "single_pod_16x16")
+            out["faults"][name] = run_cell(arch, shape, mesh, "single_pod_16x16", plan=plan,
+                                           cfg=cfg)
         except Exception as e:   # the test names the fault
             out["faults"][name] = {"error": f"{type(e).__name__}: {e}"}
     dist.destroy_process_group()
@@ -129,6 +151,27 @@ def _child(out_dir):
     dist.destroy_process_group()
     with open(Path(out_dir) / "dryrun.json", "w") as f:
         json.dump(out, f)
+
+
+def _head_product(mesh):
+    """The LM head's product on the (2, 2) fake mesh: rows [8, 16, 32] sharded over data
+    times a tied head [32, 250] sharded along its embed dim over data (ZeRO-3): the
+    counted FLOPs and the logits' local shape through ``place_head``, and DTensor's own
+    product's."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.hlo_counter import corrected_costs
+    from repro_torch.sharding.constraints import place_head
+
+    x = distribute_tensor(torch.empty(8, 16, 32, device="meta"), mesh, (Shard(0), Replicate()))
+    w = distribute_tensor(torch.empty(32, 250, device="meta"), mesh, (Shard(0), Replicate()))
+    out = {}
+    for name, head in (("place_head", lambda: place_head(w, x)), ("dtensor", lambda: w)):
+        got = {}
+        cc = corrected_costs(lambda: got.setdefault("y", x @ head()))
+        out[name] = {"flops": cc.ops["aten.mm"][1], "local": list(got["y"].to_local().shape),
+                     "placements": [str(p) for p in got["y"].placements]}
+    return out
 
 
 def _three_axis():
@@ -459,6 +502,27 @@ def test_a_training_step_shards_the_batch(fake):
     assert rms["calls"] > 0 and rms["flops"] == rms["calls"] * 4.0 * (256 // 2) * 4096 * 64
 
 
+def test_an_accumulated_training_step_shards_each_micro_batch(fake):
+    """The same step with grad_accum 2: each norm sees its share of each micro-batch
+    (256 / 2 / 2 sequences), twice as many calls, the same FLOPs. The micro-batches
+    were DTensor slices of the batch, which come back replicated: each norm saw all
+    128 sequences of a micro-batch."""
+    one, rms = fake[0]["train"]["rmsnorm"], fake[0]["train_accum"]["rmsnorm"]
+    assert rms["calls"] == TRAIN_ACCUM * one["calls"]
+    assert rms["flops"] == one["flops"] == \
+        rms["calls"] * 4.0 * (256 // TRAIN_ACCUM // 2) * 4096 * 64
+
+
+def test_the_lm_head_keeps_the_batch_sharding(fake):
+    """``place_head`` gathers the tied head over the data axis and splits its 250
+    columns over the model axis (125 a rank): each device multiplies its 4 rows by its
+    125 columns. (DTensor's own product's placements and FLOPs are printed on failure.)"""
+    head = fake[0]["head"]
+    got = head["place_head"]
+    assert got["placements"] == ["S(0)", "S(2)"], head
+    assert got["local"] == [4, 16, 125] and got["flops"] == 2.0 * 4 * 16 * 32 * 125, head
+
+
 @pytest.mark.parametrize("arch", sorted(SMOKE_CELLS))
 def test_a_smoke_cell_reads_as_ok_in_the_roofline(fake, arch):
     sys.path.insert(0, str(ROOT))
@@ -544,12 +608,41 @@ def test_a_step_runs_on_three_axes_where_the_view_cannot_merge(fake, reference_d
         reference_dryrun.model_flops(jax_get_smoke("granite-8b"), JaxShapeConfig(*args)) > 0
 
 
+ACCUM_CELLS = sorted(k for k, v in FAULT_CELLS.items() if len(v) > 2)
+
+
+@pytest.mark.parametrize("fault", [k for k in ACCUM_CELLS if k.startswith("F8 mamba2")])
+def test_grad_accumulation_keeps_the_counted_flops(fake, reference_dryrun, fault):
+    """mamba2-130m smoke (its full vocabulary) ``train_4k`` on the 16 x 16 mesh with
+    grad_accum 4: the counted FLOPs a device within 5% of grad_accum 1 (the reference's
+    do not move with it), each norm call on a quarter of the rows of grad_accum 1's
+    (its data rank's 4 of a micro-batch's 64 sequences), and ``model_flops`` the
+    reference's."""
+    from repro.config.shapes import SHAPES as JAX_SHAPES
+    from repro.configs import get_config as jax_get_config, get_smoke as jax_get_smoke
+
+    arch, shape, accum = FAULT_CELLS[fault]
+    cell, one = fake[0]["faults"][fault], fake[0]["accum_one"][fault]
+    assert "error" not in cell, cell["error"]
+    flops, flops_one = cell["cost_corrected"]["flops"], one["cost_corrected"]["flops"]
+    assert abs(flops / flops_one - 1) <= 0.05, (flops, flops_one)
+    rms, rms_one = (c["cost_corrected"]["kernels"]["rmsnorm"] for c in (cell, one))
+    assert rms["calls"] == accum * rms_one["calls"] and rms["flops"] == rms_one["flops"]
+    assert rms["flops"] / rms["calls"] == rms_one["flops"] / rms_one["calls"] / accum
+    jcfg = jax_get_smoke(arch).replace(vocab_size=jax_get_config(arch).vocab_size)
+    assert cell["roofline"]["model_flops"] == one["roofline"]["model_flops"] == \
+        reference_dryrun.model_flops(jcfg, JAX_SHAPES[shape]) > 0
+
+
 @pytest.mark.parametrize("fault", sorted(FAULT_CELLS))
 def test_a_sharded_step_runs_at_production_size(fake, fault):
     """F2: granite-8b's 8 KV heads and whisper-base's 8 heads on a 16-way model axis
     (DTensor cannot unflatten them unevenly); F3: olmoe-1b-7b's cache is sharded
     along S, and its write indexed by a boolean mask (no ``meta`` kernel); F5:
-    AdamW read the step counter of a ``meta`` state as an int."""
+    AdamW read the step counter of a ``meta`` state as an int; F8: with grad_accum 4
+    the tied head's logits were ``Partial`` (replicated micro-batch rows times a head
+    sharded along its embed dim), and DTensor's gather of them failed ("too many
+    indices for tensor of dimension 2")."""
     cell = fake[0]["faults"][fault]
     assert "error" not in cell, cell["error"]
     assert cell["devices"] == 256 and cell["cost_corrected"]["flops"] > 0

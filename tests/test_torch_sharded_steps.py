@@ -9,14 +9,24 @@ ranks over a ``file://`` store; every case runs inside the ranks and every
 rank saves what it gathered. The tests compare in this process:
 
   * ``jit_serve_steps`` (granite dense, olmoe MoE, whisper encdec with
-    ``frames``, mamba2 SSM through ``ssd``'s route) on (2, 1), (1, 2) and
-    (2, 2), granite on (2, 2) also inside ``activation_constraints``, and
+    ``frames``, mamba2 SSM through ``ssd``'s route, hymba hybrid, internvl2 vlm
+    with ``patches``) on (2, 1), (1, 2) and (2, 2), granite on (2, 2) also
+    inside ``activation_constraints``, and
     granite on (1, 4), a model axis larger than its 2 KV heads: a
     prefill and 4 decode steps give ``build_serve_steps``'s logits within
     the float32 ``_tol`` and its tokens wherever the top-2 logit gap exceeds it;
-  * ``jit_train_step`` (granite, olmoe) on (2, 1) with ZeRO-3 and on (1, 2):
-    2 steps' loss, grad norm and every updated leaf within ``_tol`` of
-    ``build_train_step``, the embed dim's local shard 1/world of the whole;
+  * ``jit_train_step`` on (2, 1) with ZeRO-3 and on (1, 2): granite and olmoe
+    (remat "none"), mamba2, hymba, whisper and internvl2 (the default plan), and
+    on (2, 1) granite with grad_accum 2, int8 compression, remat "dots" and
+    without ZeRO-3, olmoe and mamba2 with grad_accum 2, mamba2 with grad_accum 4
+    (micro-batches of one row, which no data axis divides): 2 steps' loss, grad
+    norm and every updated leaf within ``_tol`` of ``build_train_step`` with the
+    same plan, the embed dim's local shard 1/data of the whole under ZeRO-3;
+  * the micro-batches of a batch placed over the data axes on (2, 1), (4, 1),
+    (2, 2) and (pod, data, model) = (2, 2, 1): each holds the reference's rows,
+    placed as a batch of its size;
+  * ``take_last`` of ``Partial`` and of unevenly vocab-sharded logits, and its
+    gradient, against the plain gather;
   * flash attention with heads sharded on (1, 2) gathers nothing, and a
     cumsum along a sharded dim sees the whole dim after ``unshard``;
   * ``launch.train`` in a world of 2 equals a world of 1 (losses, grad norms,
@@ -46,13 +56,36 @@ ROOT = Path(__file__).resolve().parent.parent
 F32_TOL = dict(rtol=2e-3, atol=2e-3)   # tests/test_kernels.py::_tol, float32
 TOL = F32_TOL["atol"]
 
-SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "whisper-base", "mamba2-130m")
+SERVE_ARCHS = ("granite-8b", "olmoe-1b-7b", "whisper-base", "mamba2-130m", "hymba-1.5b",
+               "internvl2-76b")
 SERVE_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 CONSTRAINED = {(2, 2): ("granite-8b",)}   # serve cases also run inside activation_constraints
 # serve cases on a model axis larger than the smoke config's 2 KV heads
 FEW_KV_HEADS = {(1, 4): ("granite-8b",)}
-TRAIN_ARCHS = ("granite-8b", "olmoe-1b-7b")
-TRAIN_MESHES = {2: ((2, 1), (1, 2))}
+# train cases: (mesh, arch, plan name); each plan's keywords to ParallelPlan, and its lr
+PLANS = {"": dict(remat="none"), "default": {}, "accum-2": dict(remat="none", grad_accum=2),
+         "accum-4": dict(remat="none", grad_accum=4), "int8": dict(remat="none", compress_grads=True),
+         "remat-dots": dict(remat="dots"), "no-zero3": dict(remat="none", zero3=False)}
+# tests/test_torch_train_step.py::STEP_CASES holds int8 compression at the smaller lr
+PLAN_LR = {"int8": 1e-3}
+TRAIN_CASES = ([(shape, arch, "") for shape in ((2, 1), (1, 2))
+                for arch in ("granite-8b", "olmoe-1b-7b")]
+               + [(shape, arch, "default") for shape in ((2, 1), (1, 2))
+                  for arch in ("mamba2-130m", "hymba-1.5b", "whisper-base", "internvl2-76b")]
+               + [((2, 1), "granite-8b", plan)
+                  for plan in ("accum-2", "int8", "remat-dots", "no-zero3")]
+               + [((2, 1), arch, "accum-2") for arch in ("olmoe-1b-7b", "mamba2-130m")]
+               + [((2, 1), "mamba2-130m", "accum-4")])
+TRAIN_ARCHS = tuple(dict.fromkeys(arch for _, arch, _ in TRAIN_CASES))
+# take_last cases in the world of 4: (mesh, placements: P Partial, R Replicate, S Shard(2),
+# the vocabulary); 10 on 4 ranks and 9 on 2 are uneven spans (3, 3, 3, 1 and 5, 4)
+TAKE_LAST_CASES = {"uneven vocab": ((1, 4), "RS", 10), "partial": ((2, 2), "PR", 8),
+                   "partial, uneven vocab": ((2, 2), "PS", 9)}
+# micro-batch cases: (mesh, batch, grad_accum); the world is the mesh's size, a mesh of
+# three axes is (pod, data, model), the batch over pod and data
+MICRO_CASES = (((2, 1), 4, 2), ((2, 1), 4, 4), ((2, 1), 6, 3), ((2, 1), 8, 2),
+               ((4, 1), 8, 2), ((4, 1), 12, 3), ((4, 1), 8, 4), ((2, 2), 8, 2),
+               ((2, 2, 1), 8, 2), ((2, 2, 1), 12, 3), ((2, 2, 1), 8, 4))
 B, S, DECODE_STEPS, TRAIN_STEPS = 4, 16, 4, 2
 PROMPT_LENS = (16, 9, 12, 5)
 LR = 1e-2
@@ -100,16 +133,33 @@ def _serve_case(api, params, inputs, mesh, plan, constrained=False):
     return out
 
 
-def _train_case(api, params, inputs, mesh, plan):
-    from repro_torch.models.common import tree_items, tree_map
-    from repro_torch.sharding.rules import gather
-    from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.train_step import TrainState, jit_train_step
+def _plan(name):
+    from repro_torch.config.parallel import ParallelPlan
 
-    batches = inputs["train"][api.cfg.name]
-    fn, _, _, _ = jit_train_step(api, plan, mesh, batches[0], lr=LR, warmup_steps=1)
+    return ParallelPlan(**PLANS[name]).restrict_to(("data", "model"))
+
+
+def _init_state(params, plan):
+    from repro_torch.models.common import tree_map
+    from repro_torch.training.compress import init_residual
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import TrainState
+
     params = tree_map(torch.clone, params)
-    state = TrainState(params, adamw_init(params), None)
+    return TrainState(params, adamw_init(params),
+                      init_residual(params) if plan.compress_grads else None)
+
+
+def _train_case(api, params, inputs, mesh, plan_name):
+    from repro_torch.models.common import tree_items
+    from repro_torch.sharding.rules import gather
+    from repro_torch.training.train_step import jit_train_step
+
+    plan = _plan(plan_name)
+    batches = inputs["train"][api.cfg.name]
+    fn, _, _, _ = jit_train_step(api, plan, mesh, batches[0], lr=PLAN_LR.get(plan_name, LR),
+                                 warmup_steps=1)
+    state = _init_state(params, plan)
     out = {"loss": [], "grad_norm": []}
     for batch in batches:
         state, metrics = fn(state, batch)
@@ -119,6 +169,57 @@ def _train_case(api, params, inputs, mesh, plan):
     emb = state.params["embed"]
     out["embed"] = (tuple(emb.shape), tuple(emb.to_local().shape), tuple(emb.placements))
     return out
+
+
+def _mesh_axes(shape):
+    return ("pod", "data", "model")[-len(shape):]
+
+
+def _microbatch_case(mesh, b, accum):
+    """Each micro-batch of a [b, 3] int32 and a [b, 2, 5] float32 leaf placed over the
+    data axes: (placements, local shape, whole value) a leaf."""
+    from repro_torch.config.parallel import ParallelPlan
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding.rules import gather, place_tree, tree_batch_shardings
+    from repro_torch.training.train_step import _split_microbatches
+
+    plan = ParallelPlan(**PLANS["accum-2"]).restrict_to(mesh.mesh_dim_names)
+    batch = {"tokens": torch.arange(b * 3, dtype=torch.int32).reshape(b, 3),
+             "frames": torch.arange(b * 10, dtype=torch.float32).reshape(b, 2, 5) / 7}
+    batch = place_tree(batch, tree_batch_shardings(batch, plan, mesh))
+    return [tree_map(lambda x: (tuple(x.placements), tuple(x.to_local().shape), gather(x)), mb)
+            for mb in _split_microbatches(batch, accum, plan)]
+
+
+def _take_last_case(mesh, placements, vocab):
+    """``take_last`` of [2, 3, vocab] logits placed by ``placements`` (a ``Partial`` mesh
+    dim holds addends of the logits, a ``Shard(2)`` one an uneven span of the vocab
+    where ``vocab`` does not divide): (its whole value, the plain gather; this rank's
+    local gradient, the plain gradient's local part)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.sharding.constraints import take_last
+
+    gen = torch.Generator().manual_seed(5)
+    full, weight = torch.randn(2, 3, vocab, generator=gen), torch.randn(2, 3, generator=gen)
+    idx = torch.randint(0, vocab, (2, 3), generator=gen)
+    part = full.clone()
+    for i, p in enumerate(placements):
+        if isinstance(p, Partial):   # rank r of this mesh dim holds (r + 1) / (1 + 2 + ...)
+            n = mesh.size(i)
+            part = part * (mesh.get_local_rank(i) + 1) / (n * (n + 1) / 2)
+    shape, off = compute_local_shape_and_global_offset(
+        full.shape, mesh, [Replicate() if isinstance(p, Partial) else p for p in placements])
+    cols = slice(off[2], off[2] + shape[2])
+    local = part[:, :, cols].clone().requires_grad_(True)
+    x = DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape,
+                           stride=full.stride())
+    got = take_last(x, idx).full_tensor()
+    (got * weight).sum().backward()
+    grad = torch.zeros_like(full).scatter(-1, idx[..., None], weight[..., None])
+    return {"got": got.detach(), "want": torch.gather(full, -1, idx[..., None])[..., 0],
+            "grad": local.grad, "want_grad": grad[:, :, cols]}
 
 
 def _flash_collectives(mesh):
@@ -196,13 +297,24 @@ def _rank_main(rank, world, tmp):
                 api = build(_f32_smoke(arch), device="cpu")
                 out[("serve", arch, shape)] = _serve_case(api, inputs["params"][arch], inputs,
                                                           mesh, plan)
-    for shape in TRAIN_MESHES.get(world, ()):
-        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
-        plan = ParallelPlan(remat="none", zero3=True).restrict_to(("data", "model"))
-        for arch in TRAIN_ARCHS:
+    if world == 2:
+        for shape, arch, plan_name in TRAIN_CASES:
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
             api = build(_f32_smoke(arch), device="cpu")
-            out[("train", arch, shape)] = _train_case(api, inputs["params"][arch], inputs, mesh,
-                                                      plan)
+            out[("train", arch, shape, plan_name)] = _train_case(
+                api, inputs["params"][arch], inputs, mesh, plan_name)
+    if world == 4:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        for name, (shape, placements, vocab) in TAKE_LAST_CASES.items():
+            out[("take_last", name)] = _take_last_case(
+                make_mesh(shape, ("data", "model"), device_type="cpu"),
+                tuple({"P": Partial(), "R": Replicate(), "S": Shard(2)}[p] for p in placements),
+                vocab)
+    for shape, b, accum in MICRO_CASES:
+        if math.prod(shape) == world:
+            out[("micro", shape, b, accum)] = _microbatch_case(
+                make_mesh(shape, _mesh_axes(shape), device_type="cpu"), b, accum)
     if world == 2:
         out["flash"] = _flash_collectives(make_mesh((1, 2), ("data", "model"), device_type="cpu"))
         out["cumsum"] = _scan_of_a_sharded_dim(make_mesh((2, 1), ("data", "model"),
@@ -216,6 +328,15 @@ def _rank_main(rank, world, tmp):
 
 
 # ------------------------------------------------------------ the parent's side
+def _extras(cfg, rng):
+    """whisper's frames or internvl2's patches for B rows, float32 from ``rng``."""
+    shapes = {"encdec": ("frames", cfg.encoder_frames), "vlm": ("patches", cfg.num_patches)}
+    if cfg.family not in shapes:
+        return {}
+    name, n = shapes[cfg.family]
+    return {name: torch.from_numpy(rng.standard_normal((B, n, cfg.d_model)).astype(np.float32))}
+
+
 def _inputs(tmp):
     """Bridged float32 weights, prompts, frames and train batches, saved for the ranks."""
     import jax
@@ -231,11 +352,10 @@ def _inputs(tmp):
             jax.random.PRNGKey(0))
         params[arch] = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
         cfg = _f32_smoke(arch)
-        extras[cfg.name] = ({"frames": torch.from_numpy(rng.standard_normal(
-            (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32))}
-            if cfg.family == "encdec" else {})
-        train[cfg.name] = [{key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
-                            for key in ("tokens", "targets")} for _ in range(TRAIN_STEPS)]
+        extras[cfg.name] = _extras(cfg, rng)
+        train[cfg.name] = [{**{key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+                               for key in ("tokens", "targets")}, **_extras(cfg, rng)}
+                           for _ in range(TRAIN_STEPS)]
     inputs = {"params": params, "extras": extras, "train": train,
               "tokens": torch.from_numpy(rng.integers(0, 256, (B, S))),
               "prompt_lens": torch.tensor(PROMPT_LENS, dtype=torch.int32)}
@@ -312,27 +432,22 @@ def test_sharded_serve_steps_equal_the_unsharded(worlds, world, shape, arch, kin
             assert torch.equal(tok[clear], torch.argmax(w, dim=-1).to(torch.int32)[clear]), i
 
 
-TRAIN_CASES = [(w, shape, arch) for w, shapes in TRAIN_MESHES.items() for shape in shapes
-               for arch in TRAIN_ARCHS]
-
-
-@pytest.mark.parametrize("world,shape,arch", TRAIN_CASES,
-                         ids=[f"{a}-{s[0]}x{s[1]}" for _, s, a in TRAIN_CASES])
-def test_sharded_train_step_equals_the_unsharded(worlds, world, shape, arch):
-    """2 steps: loss, grad norm and every updated leaf within ``_tol``; ZeRO-3 leaves
-    the embed dim sharded over the data axis, the vocab takes the model axis."""
-    from repro_torch.config.parallel import ParallelPlan
-    from repro_torch.models.common import tree_items, tree_map
+@pytest.mark.parametrize("shape,arch,plan_name", TRAIN_CASES,
+                         ids=[f"{a}-{s[0]}x{s[1]}" + (f"-{p}" if p else "")
+                              for s, a, p in TRAIN_CASES])
+def test_sharded_train_step_equals_the_unsharded(worlds, shape, arch, plan_name):
+    """2 steps: loss, grad norm and every updated leaf within ``_tol`` of the unsharded
+    step with the same plan; ZeRO-3 leaves the embed dim sharded over the data axis,
+    the vocab takes the model axis."""
+    from repro_torch.models.common import tree_items
     from repro_torch.models.model import build
-    from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.train_step import TrainState, build_train_step
+    from repro_torch.training.train_step import build_train_step
 
     inputs, results = worlds[:2]
     api = build(_f32_smoke(arch), device="cpu")
-    plan = ParallelPlan(remat="none").restrict_to(("data", "model"))
-    params = tree_map(torch.clone, inputs["params"][arch])
-    state = TrainState(params, adamw_init(params), None)
-    step = build_train_step(api, plan, lr=LR, warmup_steps=1)
+    plan, lr = _plan(plan_name), PLAN_LR.get(plan_name, LR)
+    state = _init_state(inputs["params"][arch], plan)
+    step = build_train_step(api, plan, lr=lr, warmup_steps=1)
     losses, norms = [], []
     for batch in inputs["train"][api.cfg.name]:
         state, metrics = step(state, batch)
@@ -340,9 +455,9 @@ def test_sharded_train_step_equals_the_unsharded(worlds, world, shape, arch):
         norms.append(float(metrics["grad_norm"]))
     want = dict(tree_items(state.params))
     moved = max((want[p] - x).abs().max().item() for p, x in tree_items(inputs["params"][arch]))
-    assert moved > 5 * TOL   # the updates move the leaves past the tolerance
-    for got in results[world]:
-        case = got[("train", arch, shape)]
+    assert moved > min(5 * TOL, lr)   # the updates move the leaves past the tolerance
+    for got in results[2]:
+        case = got[("train", arch, shape, plan_name)]
         np.testing.assert_allclose(case["loss"], losses, **F32_TOL)
         np.testing.assert_allclose(case["grad_norm"], norms, **F32_TOL)
         assert sorted(case["params"]) == sorted(want)
@@ -351,7 +466,52 @@ def test_sharded_train_step_equals_the_unsharded(worlds, world, shape, arch):
                                        err_msg=path, **F32_TOL)
         whole, local, _ = case["embed"]
         data, model = shape
-        assert local == (whole[0] // model, whole[1] // data)   # [vocab, embed]
+        fsdp = data if plan.zero3 else 1
+        assert local == (whole[0] // model, whole[1] // fsdp)   # [vocab, embed]
+
+
+@pytest.mark.parametrize("shape,b,accum", MICRO_CASES,
+                         ids=["x".join(map(str, s)) + f"-b{b}-accum{a}" for s, b, a in MICRO_CASES])
+def test_microbatches_hold_the_reference_rows_placed_as_a_batch_of_their_size(
+        worlds, shape, b, accum):
+    """Micro-batch i holds rows [i*n, (i+1)*n), n = b / accum (the reference's reshape to
+    (accum, n)), each rank n / ways of them: ways the data axes that divide n, the
+    trailing ones shed first as ``batch_spec`` sheds them, 1 (replicated) where none
+    does. DTensor's own slice of the batch-sharded leaf replicated every micro-batch."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    n, data = b // accum, list(shape[:-1])
+    while data and n % math.prod(data):
+        data.pop()
+    ways = math.prod(data)
+    want_pl = tuple(Shard(0) if i < len(data) and ways > 1 else Replicate()
+                    for i in range(len(shape)))
+    plain = {"tokens": torch.arange(b * 3, dtype=torch.int32).reshape(b, 3),
+             "frames": torch.arange(b * 10, dtype=torch.float32).reshape(b, 2, 5) / 7}
+    for got in worlds[1][math.prod(shape)]:
+        mbs = got[("micro", shape, b, accum)]
+        assert len(mbs) == accum
+        for i, mb in enumerate(mbs):
+            for key, x in plain.items():
+                placements, local, whole = mb[key]
+                assert placements == want_pl, (i, key)
+                assert local == (n // ways, *x.shape[1:]), (i, key)
+                assert torch.equal(whole, x[i * n:(i + 1) * n]), (i, key)
+
+
+@pytest.mark.parametrize("name", sorted(TAKE_LAST_CASES))
+def test_take_last_of_partial_or_unevenly_sharded_logits(worlds, name):
+    """The gold logit and its gradient, against the plain gather, where the logits are
+    ``Partial`` (replicated rows times a head sharded along its embed dim: a
+    micro-batch that no data axis divides, under ZeRO-3 with a tied head) or sharded
+    unevenly along the vocab (hymba-1.5b's 32001 on a 16-way model axis): DTensor's own
+    gather fails on the first, and a span of V // ranks a rank misplaced the second."""
+    for got in worlds[1][4]:
+        case = got[("take_last", name)]
+        np.testing.assert_allclose(case["got"].numpy(), case["want"].numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(case["grad"].numpy(), case["want_grad"].numpy(), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_flash_with_heads_sharded_gathers_nothing(worlds):

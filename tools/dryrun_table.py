@@ -7,7 +7,12 @@ counted FLOPs: dense matmuls, batched matmuls (einsum: MoE dispatch and
 combine, attention's gradient), the attention kernels, and ``moe_gmm`` and
 ``ssd`` with their backward kernels.
 
+With two directories (``--compare A B``, e.g. a grid at ``--grad-accum 1`` and one
+at ``--grad-accum 4``) it prints one row a cell of both: counted FLOPs and collective
+link bytes a device in each, and B over A.
+
 Usage: PYTHONPATH=src python tools/dryrun_table.py results/dryrun_torch
+       PYTHONPATH=src python tools/dryrun_table.py --compare DIR_A DIR_B
 """
 from __future__ import annotations
 
@@ -26,22 +31,52 @@ _SHARES = (("mm", ("aten.mm", "aten.addmm")), ("bmm", ("aten.bmm", "aten.baddbmm
                         "kernel:ssd_backward")))
 
 
-def report(out_dir: str) -> str:
-    """The table of the cells under ``out_dir``."""
+def _cells(out_dir: str) -> Dict[Tuple[str, str], Dict[str, Any]]:
+    """(arch, shape) -> mesh -> the cell's JSON, of every cell under ``out_dir``."""
     cells: Dict[Tuple[str, str], Dict[str, Any]] = {}
     for name in sorted(os.listdir(out_dir)):
         if name.endswith(".json"):
             with open(os.path.join(out_dir, name)) as f:
                 c = json.load(f)
             cells.setdefault((c["arch"], c["shape"]), {})[c["mesh"]] = c
+    return cells
+
+
+def _order(key: Tuple[str, str]):
+    order = {a: i for i, a in enumerate(ARCH_IDS)}
+    return order.get(key[0], 99), SHAPE_ORDER.index(key[1]) if key[1] in SHAPE_ORDER else 99
+
+
+def compare(dir_a: str, dir_b: str) -> str:
+    """One row a (arch, shape, mesh) counted in both directories: FLOPs and collective
+    link bytes a device in A and in B, and B / A; a cell that failed in either says
+    which."""
+    a, b = _cells(dir_a), _cells(dir_b)
+    lines = ["| arch | shape | mesh | FLOPs a device A | B | B / A | collective bytes a device A "
+             "| B | B / A |", "|" + "---|" * 9]
+    for key in sorted(set(a) | set(b), key=_order):
+        for mesh in sorted(set(a.get(key, {})) | set(b.get(key, {}))):
+            ca, cb = a.get(key, {}).get(mesh), b.get(key, {}).get(mesh)
+            if not all(c and "roofline" in c for c in (ca, cb)):
+                state = lambda c: "missing" if not c else c.get("error", c.get("skipped", "?"))
+                lines.append(f"| {key[0]} | {key[1]} | {mesh} | {state(ca)} | {state(cb)} "
+                             "| | | | |")
+                continue
+            fa, fb = (c["roofline"]["flops_per_device"] for c in (ca, cb))
+            la, lb = (c["roofline"]["collective_link_bytes_per_device"] for c in (ca, cb))
+            lines.append(f"| {key[0]} | {key[1]} | {mesh} | {fa:.4e} | {fb:.4e} | {fb / fa:.4f} "
+                         f"| {la:.4e} | {lb:.4e} | {lb / la:.3f} |")
+    return "\n".join(lines) + "\n"
+
+
+def report(out_dir: str) -> str:
+    """The table of the cells under ``out_dir``."""
+    cells = _cells(out_dir)
     head = ("| arch | shape | counted FLOPs x devices | model_flops | ratio single / multi | "
             "bottleneck single / multi | peak GiB a device single / multi | "
             + " | ".join(f"{k} share" for k, _ in _SHARES) + " |")
     lines = [head, "|" + "---|" * (7 + len(_SHARES))]
-    order = {a: i for i, a in enumerate(ARCH_IDS)}
-    for (arch, shape), by_mesh in sorted(cells.items(), key=lambda kv: (
-            order.get(kv[0][0], 99), SHAPE_ORDER.index(kv[0][1]) if kv[0][1] in SHAPE_ORDER
-            else 99)):
+    for (arch, shape), by_mesh in sorted(cells.items(), key=lambda kv: _order(kv[0])):
         single, multi = by_mesh.get(MESHES["single"][0]), by_mesh.get(MESHES["multi"][0])
         ran = [c for c in (single, multi) if c and "roofline" in c]
         if not ran:
@@ -62,4 +97,7 @@ def report(out_dir: str) -> str:
 
 
 if __name__ == "__main__":
-    print(report(sys.argv[1]), end="")
+    if sys.argv[1] == "--compare":
+        print(compare(sys.argv[2], sys.argv[3]), end="")
+    else:
+        print(report(sys.argv[1]), end="")
