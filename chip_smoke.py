@@ -15,11 +15,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      top-8), and whisper-base's non-causal
      encoder and cross-attention, causal decoder self-attention, partly filled
      self cache and all-valid cross cache), in bf16 and f32, with kernel, plain and library device
-     times (``Timer``) and the card's bound for the same work; and the two backward
+     times (``Timer``) and the card's bound for the same work; and the four backward
      kernels against their plain formulas at the training micro-batch's shapes
      (``moe_gmm``'s at olmoe-1b-7b's and qwen3-moe's, with NaN past ``live``;
-     ``ssd``'s at mamba2-130m's and hymba-1.5b's), with ``torch.bmm``'s two
-     products as ``moe_gmm``'s library;
+     ``ssd``'s at mamba2-130m's and hymba-1.5b's; flash attention's at granite-8b's,
+     whisper-base's cross-attention and hymba-1.5b's window 1024 at G = 5, after the
+     forward's row logsumexp against a plain one; rmsnorm's at [2, 4096, 4096]), with
+     ``torch.bmm``'s two products as ``moe_gmm``'s library and SDPA's and
+     ``F.rms_norm``'s backward (``torch.autograd.grad`` on a saved graph) as flash's
+     and rmsnorm's; flash's and rmsnorm's backward twice on the same inputs, bitwise
+     equal; and ``moe_gmm`` at olmoe's gate/up shape on a (1, 1) NCCL mesh with xe's
+     rows sharded (ROADMAP C1's row role), bitwise equal to the plain call;
   3. serving, once per model: granite-8b, glm4-9b, qwen2.5-32b, deepseek-67b
      (dense; deepseek cut to 44 of 95 layers), olmoe-1b-7b (MoE), mamba2-130m
      (SSM), hymba-1.5b (hybrid, cache 2048 so that its sliding layers hold a
@@ -60,8 +66,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      unsafe, and ``trace_capture``'s CUDA-event step calibration at batches 1,
      2 and 4;
   6. train: (a) the ``autograd.Function`` of rmsnorm, flash attention, moe_gmm
-     and ssd (the kernel forward; the gradient formula backward, or for moe_gmm
-     and ssd the backward kernel) against autograd of the plain version, at
+     and ssd (the kernel forward, the backward kernel backward) against autograd of
+     the plain version, at
      granite-8b's, olmoe-1b-7b's and mamba2-130m's training shapes and
      whisper-base's cross-attention, bf16 and f32, with forward+backward device
      times; (b) ``train_loss`` and every leaf's gradient of granite-8b,
@@ -193,8 +199,14 @@ TRAIN_GMM_CASES = (("olmoe gate/up", 64, 1280, 2048, 1024, 8),
                    ("olmoe down", 64, 1280, 1024, 2048, 8),
                    ("qwen3-moe gate/up", 128, 640, 4096, 1536, 8))
 TRAIN_SSD_CASES = (("mamba2", 2, 4096, 24, 64, 128, 128), ("hymba", 2, 4096, 50, 64, 16, 128))
+# flash's backward at TRAIN_FLASH_CASES' shapes and hymba-1.5b's sliding layers' (25 query
+# heads over 5 KV heads, head_dim 64, window 1024), (what, B, Sq, Sk, Hq, Hkv, dh, causal,
+# window); rmsnorm's at TRAIN_RMS_SHAPE
+TRAIN_FLASH_BACKWARD_CASES = tuple(c + (0,) for c in TRAIN_FLASH_CASES) + (
+    ("hymba sliding", 2, 4096, 4096, 25, 5, 64, True, 1024),)
 # the backward kernels' counters, 0 in every run that trains nothing
-NO_BACKWARD = {"moe_gmm_backward": 0, "ssd_backward": 0}
+NO_BACKWARD = {"rmsnorm_backward": 0, "flash_attention_backward": 0, "moe_gmm_backward": 0,
+               "ssd_backward": 0}
 TRAIN_LM_STEPS = 40
 # phase 7 (launch): the CLIs' run() at full width; whisper-base is the one trainable
 # family whose full depth and width train on one card (70.7 M parameters, ~1.1 GB of
@@ -724,13 +736,14 @@ def phase_kernels(torch, timer: Timer):
 
 
 def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
-    """Phase 2's rows of the two backward kernels, each against its plain formula at the
+    """Phase 2's rows of the backward kernels, each against its plain formula at the
     training micro-batch's shapes (``TRAIN_GMM_CASES``, ``TRAIN_SSD_CASES``) and at ragged
     ones, bf16 and float32. moe_gmm's inputs hold NaN in the rows past ``live`` (the
     kernel must not read them, and its dxe there must be exactly zero); the library is
     ``torch.bmm``'s two products dout·weᵀ and xeᵀ·dout over every row. ssd's dy is drawn
     like x, its final state's gradient absent (as in ``train_loss``) and, at the
-    ragged shapes, present."""
+    ragged shapes, present. Then ROADMAP C1's row role (``moe_rows_case``) and the
+    rows of the flash and rmsnorm backward kernels (``attn_norm_backward_rows``)."""
     from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import ssd as kssd
 
@@ -792,7 +805,148 @@ def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
                        ssd_backward_op_types(c.flops, dtn, b, s_len, h, p, chunk),
                        tol=3e-2 if dtn == "bfloat16" else 1e-3)
         torch.cuda.empty_cache()
-    return [e_gmm, e_ssd]
+    moe_rows_case(torch, rnd, routed)
+    return [e_gmm, e_ssd, *attn_norm_backward_rows(torch, rnd, meta, record)]
+
+
+def _repeats(torch, fn, out: list) -> None:
+    """Appends to ``out`` whether two calls of ``fn`` give bitwise-equal outputs."""
+    a, b = fn(), fn()
+    out.append(all(bool(torch.equal(x, y)) for x, y in zip(a, b)))
+
+
+def attn_norm_backward_rows(torch, rnd, meta, record):
+    """Phase 2's rows of the flash attention and rmsnorm backward kernels, each against
+    its ``plain_backward`` at the training shapes (``TRAIN_FLASH_BACKWARD_CASES``: granite's
+    causal G = 4, whisper's non-causal cross, hymba's window 1024 at G = 5; and
+    ``TRAIN_RMS_SHAPE``), bf16 and float32, under ``GRAD_TOL``; each call made twice on
+    its first input set must give bitwise-equal gradients (no float atomics). The flash
+    forward's logsumexp is held against ``plain_lse`` first. The library is SDPA's and
+    ``F.rms_norm``'s backward, ``torch.autograd.grad`` on a graph saved once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import rmsnorm as krms
+
+    has_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    e_fl = dict(name="flash_attention_backward", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:105")
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for what, b, sq, sk, hq, hkv, dh, causal, window in TRAIN_FLASH_BACKWARD_CASES:
+            repeat = []
+
+            def make(b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, window=window, dt=dt,
+                     repeat=repeat):
+                q, k, v, do = (rnd(shape, dt) for shape in ((b, sq, hq, dh), (b, sk, hkv, dh),
+                                                             (b, sk, hkv, dh), (b, sq, hq, dh)))
+                mask = dict(causal=causal, window=window)
+                o, lse = kfl.forward_with_lse(q, k, v, **mask)
+                if not repeat:
+                    want = kfl.plain_lse(q, k, **mask)
+                    fin = torch.isfinite(want)
+                    _check(f"flash_attention forward lse {what} {dtn}", torch.where(fin, lse, 0),
+                           torch.where(fin, want, 0), "float32", GRAD_TOL["float32"])
+                    if not torch.equal(torch.isfinite(lse), fin):
+                        raise AssertionError(f"flash lse {what}: -inf rows differ")
+                    _repeats(torch, lambda: kfl.backward(q, k, v, o, lse, do, **mask), repeat)
+                lib = None
+                if has_gqa:
+                    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+                    allowed = kfl._allowed(sq, sk, causal, window, "cuda") if window > 0 else None
+                    out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
+                                                         is_causal=causal and window <= 0,
+                                                         enable_gqa=True)
+                    dot = do.transpose(1, 2)
+                    lib = lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
+                return (lambda: kfl.backward(q, k, v, o, lse, do, **mask),
+                        lambda: kfl.plain_backward(q, k, v, o, do, **mask), lib)
+
+            c = kfl.backward_cost(meta((b, sq, hq, dh), dt), meta((b, sk, hkv, dh), dt),
+                                  meta((b, sk, hkv, dh), dt), causal=causal, window=window)
+            case = (f"{what} q[{b},{sq},{hq},{dh}] kv[{b},{sk},{hkv},{dh}] "
+                    f"{'causal' if causal else 'non-causal'} window={window} "
+                    f"[{kfl.kernel_for(dt, dh)}]")
+            record(e_fl, dtn == "bfloat16" and what == "granite", "flash_attention backward", case,
+                   make, c.bytes, c.flops, dtn, dtn, tol=GRAD_TOL[dtn])
+            if not repeat[0]:
+                raise AssertionError(f"flash_attention backward {case} {dtn}: two runs differ")
+            log(f"[kernels] flash_attention backward {case} {dtn}: two runs bitwise equal")
+        torch.cuda.empty_cache()
+
+    e_rms = dict(name="rmsnorm_backward", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                 replaces="src/repro/kernels/rmsnorm.py:25")
+    lib_rms = getattr(F, "rms_norm", None)
+    shape = TRAIN_RMS_SHAPE
+    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        repeat = []
+
+        def make(dt=dt, repeat=repeat):
+            x, sc, g = rnd(shape, dt), rnd(shape[-1:], dt), rnd(shape, dt)
+            if not repeat:
+                _repeats(torch, lambda: krms.backward(x, sc, g), repeat)
+            lib = None
+            if lib_rms is not None:
+                leaves = [x.detach().requires_grad_(True), sc.detach().requires_grad_(True)]
+                out = lib_rms(leaves[0], (shape[-1],), leaves[1], 1e-5)
+                lib = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+            return (lambda: krms.backward(x, sc, g), lambda: krms.plain_backward(x, sc, g), lib)
+
+        c = krms.backward_cost(meta(shape, dt), meta(shape[-1:], dt))
+        case = f"x[{','.join(map(str, shape))}] blocks={krms.backward_blocks(math.prod(shape[:-1]))}"
+        # the statistics and sums are float32 arithmetic
+        record(e_rms, dtn == "bfloat16", "rmsnorm backward", case, make, c.bytes, c.flops, dtn,
+               "float32", tol=GRAD_TOL[dtn])
+        if not repeat[0]:
+            raise AssertionError(f"rmsnorm backward {case} {dtn}: two runs differ")
+        log(f"[kernels] rmsnorm backward {case} {dtn}: two runs bitwise equal")
+    torch.cuda.empty_cache()
+    return [e_rms, e_fl]
+
+
+def moe_rows_case(torch, rnd, routed):
+    """ROADMAP C1 on the card: ``ops.moe_gmm`` at olmoe-1b-7b's gate/up training shape
+    (``TRAIN_GMM_CASES[0]``) on a (1, 1) NCCL mesh, xe's rows and ``live``'s groups
+    sharded over the data axis (the row role) and the weights' F over it (the serve
+    rules' placement): the output, sharded as the rows, and the gradients of xe and we
+    bitwise equal to the plain call's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    what, e, r, d, f, groups = TRAIN_GMM_CASES[0]
+    live = routed(1024, e, r // groups, groups)
+    mask = kgmm.live_rows(live, r)[..., None]
+    xe = rnd((e, r, d), torch.bfloat16) * mask
+    we = rnd((e, d, f), torch.bfloat16) * d**-0.5
+    g = rnd((e, r, f), torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (xe, we)]
+    want = kgmm.MoeGmmFunction.apply(*leaves, live)
+    want_grads = torch.autograd.grad(want, leaves, g)
+    started = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    try:
+        rows = (Shard(1), Replicate())
+        dxe = distribute_tensor(xe, mesh, rows).requires_grad_(True)
+        dwe = distribute_tensor(we, mesh, (Shard(2), Replicate())).requires_grad_(True)
+        out = ops.moe_gmm(dxe, dwe, distribute_tensor(live, mesh, rows))
+        grads = torch.autograd.grad(out, (dxe, dwe), distribute_tensor(g, mesh, rows))
+        got = [out.full_tensor(), *(t.full_tensor() for t in grads)]
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, (want, *want_grads))]
+        placed = tuple(out.placements)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    ok = all(equal) and placed == rows
+    log(f"[kernels] moe_gmm rows sharded (C1), {what} xe[{e},{r},{d}] we[{e},{d},{f}] on a (1, 1) "
+        f"NCCL mesh: output placed {placed}; output, dxe, dwe bitwise equal to the plain call "
+        f"{equal} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"moe_gmm's row role: placements {placed}, bitwise {equal}")
 
 
 def ssd_backward_op_types(flops: float, dtype_name: str, b: int, s_len: int, h: int, p: int,
@@ -1018,7 +1172,9 @@ def moe_layer_times(torch, timer: Timer, cfg, params):
 
 # (group, the kernel (ops name) it belongs to, substrings of its device kernels' names);
 # the first group whose substring a kernel's name holds takes it
-KERNEL_GROUPS = (("moe_gmm backward kernel", "moe_gmm_backward", ("gmm_bwd_",)),
+KERNEL_GROUPS = (("rmsnorm backward kernel", "rmsnorm_backward", ("rmsnorm_bwd_",)),
+                 ("flash backward kernel", "flash_attention_backward", ("flash_bwd_",)),
+                 ("moe_gmm backward kernel", "moe_gmm_backward", ("gmm_bwd_",)),
                  ("ssd backward kernel", "ssd_backward", ("ssd_bwd_",)),
                  ("rmsnorm kernel", "rmsnorm", ("rmsnorm_kernel",)),
                  ("flash kernel", "flash_attention", ("flash_kernel",)),
@@ -1608,11 +1764,11 @@ def phase_platform(torch, cfg, api, params):
 # phase 6: training on the card
 # ---------------------------------------------------------------------------
 def train_kernel_rows(torch, timer: Timer):
-    """(a) Each kernel's ``autograd.Function`` (the kernel forward; the gradient
-    formula backward, or the backward kernel) against ``torch.autograd`` of its plain
-    version on the card, forward and backward at the training shapes, in bf16 and
-    float32, with device times beside the bound of the same work and the library's
-    forward+backward (``torch.bmm`` for moe_gmm; ssd has none)."""
+    """(a) Each kernel's ``autograd.Function`` (the kernel forward, the backward kernel
+    backward) against ``torch.autograd`` of its plain version on the card, forward and
+    backward at the training shapes, in bf16 and float32, with device times beside the
+    bound of the same work and the library's forward+backward (``F.rms_norm``, SDPA,
+    ``torch.bmm`` for moe_gmm; ssd has none)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfl
@@ -1837,6 +1993,8 @@ def train_launches(cfg, micro_batches: int):
     attn, ssm, moe = fam != "ssm", fam in ("ssm", "hybrid"), fam == "moe"
     per = {"rmsnorm": 2 * NORMS_PER_LAYER[fam] * L + 1, "flash_attention": 2 * L if attn else 0,
            "decode_attention": 0, "moe_gmm": 6 * L if moe else 0, "ssd": 2 * L if ssm else 0,
+           "rmsnorm_backward": NORMS_PER_LAYER[fam] * L + 1,
+           "flash_attention_backward": L if attn else 0,
            "moe_gmm_backward": 3 * L if moe else 0, "ssd_backward": L if ssm else 0}
     return {k: micro_batches * v for k, v in per.items()}
 
@@ -1996,7 +2154,8 @@ def train_lm_resume(torch):
         cfg = train_lm.hundred_m_config()
         L, runs = cfg.num_layers, 2 * TRAIN_LM_STEPS
         expected = {"rmsnorm": runs * (2 * L + 1), "flash_attention": runs * L,
-                    "decode_attention": 0, "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
+                    "decode_attention": 0, "moe_gmm": 0, "ssd": 0, **NO_BACKWARD,
+                    "rmsnorm_backward": runs * (2 * L + 1), "flash_attention_backward": runs * L}
         same = sum(got.get(k) == v for k, v in want.items())
         ok = (not first["completed"] and second["completed"] and got == want
               and counts == expected)
@@ -2004,9 +2163,10 @@ def train_lm_resume(torch):
             f"step {TRAIN_LM_STEPS // 2}, resume to {TRAIN_LM_STEPS}: {same} of {len(want)} "
             f"losses equal the uninterrupted run's (max |diff| "
             f"{max(abs(got.get(k, math.inf) - v) for k, v in want.items()):.3e}); loss "
-            f"{want[1]:.4f} -> {want[TRAIN_LM_STEPS]:.4f}; launches rmsnorm "
-            f"{counts['rmsnorm']}, flash {counts['flash_attention']} (expected {expected['rmsnorm']}, "
-            f"{expected['flash_attention']}); {wall:.1f} s {'ok' if ok else 'FAIL'}")
+            f"{want[1]:.4f} -> {want[TRAIN_LM_STEPS]:.4f}; launches " + ", ".join(
+                f"{k} {counts[k]} (expected {expected[k]})" for k in
+                ("rmsnorm", "flash_attention", "rmsnorm_backward", "flash_attention_backward"))
+            + f"; {wall:.1f} s {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"train_lm: the resumed run differs: {got} != {want} or counts "
                                  f"{counts} != {expected}")
@@ -2137,7 +2297,8 @@ def launch_train(torch, card: str, arch: str = LAUNCH_TRAIN_ARCH,
     if cfg.family == "encdec":   # no remat in the encdec family
         per_step = cfg.encoder_layers + 2 * cfg.num_layers
         expected = {"rmsnorm": 0, "flash_attention": runs * per_step, "decode_attention": 0,
-                    "moe_gmm": 0, "ssd": 0, **NO_BACKWARD}
+                    "moe_gmm": 0, "ssd": 0, **NO_BACKWARD,
+                    "flash_attention_backward": runs * per_step}
     else:                        # one micro-batch a step under remat "full"
         expected = train_launches(cfg, runs)
         per_step = expected["flash_attention"] // runs
@@ -2158,9 +2319,11 @@ def launch_train(torch, card: str, arch: str = LAUNCH_TRAIN_ARCH,
         f"first {1e3 * step_s[0]:.1f} ms; walls {wall:.1f} s straight, {resume_wall:.1f} s the "
         f"restart (init or restore and checkpoints included); launches "
         f"flash {counts['flash_attention']} (expected {expected['flash_attention']}: "
-        f"{per_step} a step), rmsnorm {counts['rmsnorm']}, ssd {counts['ssd']}, ssd_backward "
-        f"{counts['ssd_backward']} (expected {expected['ssd_backward']}) {'ok' if ok else 'FAIL'} "
-        f"on {card}")
+        f"{per_step} a step), flash_attention_backward {counts['flash_attention_backward']} "
+        f"(expected {expected['flash_attention_backward']}), rmsnorm {counts['rmsnorm']}, "
+        f"rmsnorm_backward {counts['rmsnorm_backward']} (expected {expected['rmsnorm_backward']}), "
+        f"ssd {counts['ssd']}, ssd_backward {counts['ssd_backward']} (expected "
+        f"{expected['ssd_backward']}) {'ok' if ok else 'FAIL'} on {card}")
     if not ok:
         raise AssertionError(f"launch.train: the restarted run differs ({second} != {resumed}) or "
                              f"counts {counts} != {expected}")

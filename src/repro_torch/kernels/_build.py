@@ -33,8 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, b, sq, sk, hq, hkv, dh, scale, causal, window, stream
-_FLASH = (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P)
+# q, k, v, out, lse (float32 [B, Hq, Sq] or null), b, sq, sk, hq, hkv, dh, scale, causal,
+# window, stream
+_FLASH = (_P,) * 5 + (_I,) * 6 + (_F, _I, _I, _P)
+# the backward: q, k, v, out, lse, dout, dq, dk, dv, a float32 workspace (D), then as _FLASH
+_FLASH_BACKWARD = (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _P)
 # q, k, v, slot_pos, cur_pos, out, float32 workspace, b, s, hq, hkv, dh, scale, window,
 # nsplit, split_slots, stream
 _DECODE = (_P,) * 7 + (_I,) * 5 + (_F, _I, _I, _I, _P)
@@ -44,6 +47,10 @@ SIGNATURES = {
         # x, scale, out, rows, d, eps, stream
         "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
         "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
+        # the backward: x, scale, g, dx, dscale, a float32 workspace [blocks, d], rows, d,
+        # blocks, eps, stream
+        "rmsnorm_backward_f32": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+        "rmsnorm_backward_bf16": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     },
     "decode_attention": {
         "decode_attention_f32": _DECODE,
@@ -54,6 +61,9 @@ SIGNATURES = {
         "flash_attention_f32": _FLASH,
         "flash_attention_bf16": _FLASH,
         "flash_attention_bf16_wgmma": _FLASH,  # bf16 on the tensor cores, head_dim 64 or 128
+        "flash_attention_backward_f32": _FLASH_BACKWARD,
+        "flash_attention_backward_bf16": _FLASH_BACKWARD,
+        "flash_attention_backward_bf16_wgmma": _FLASH_BACKWARD,
     },
     "moe_gmm": {
         # xe, we, live (int32 [E, G] or null), out, e, rows, groups, d, f, stream

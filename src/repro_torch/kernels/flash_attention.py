@@ -16,10 +16,12 @@ other head dims, run on the CUDA cores (at most ``MAX_GROUP`` query heads per
 KV head).
 
 ``FlashAttentionFunction`` is the kernel under autograd: its forward is
-``flash_attention`` (``plain`` on CPU tensors), its backward is
-``flash_attention_backward``, the gradient formula in torch ops (the
-reference has no backward kernel: XLA differentiates its
-``chunked_attention``).
+``forward_with_lse`` (the kernel, which also writes each row's logsumexp;
+``plain`` on CPU tensors), its backward is ``backward``, the backward kernels
+of the same source (``plain_backward``, the gradient formula in torch ops, on
+CPU tensors; the reference has no backward kernel: XLA differentiates its
+``chunked_attention``). ``chunked_backward_reference`` is the backward
+kernels' passes in float32 PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -32,9 +34,12 @@ from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF, chunked_attention as plain
 
 __all__ = ["flash_attention", "plain", "cost", "allowed_pairs", "kernel_for", "launches", "MAX_GROUP", "MAX_HEAD_DIM",
-           "WGMMA_HEAD_DIMS", "flash_attention_backward", "FlashAttentionFunction"]
+           "WGMMA_HEAD_DIMS", "forward_with_lse", "plain_lse", "plain_backward",
+           "chunked_backward_reference",
+           "backward", "backward_cost", "backward_launches", "FlashAttentionFunction"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
+backward_launches = 0  # backward kernel launches since the last reset
 
 MAX_GROUP = 64      # query heads per KV head of the CUDA-core kernel (simt::kRows)
 MAX_HEAD_DIM = 128  # simt::kMaxDh; the tensor-core kernel takes WGMMA_HEAD_DIMS
@@ -51,6 +56,9 @@ BACKWARD_BLOCK_ROWS = 512
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _WGMMA = "flash_attention_bf16_wgmma"
+# each forward entry's backward entry: the same split by (dtype, head_dim)
+_BACKWARD_ENTRY = {e: e.replace("flash_attention_", "flash_attention_backward_")
+                   for e in (*_ENTRY.values(), _WGMMA)}
 
 
 def kernel_for(dtype: torch.dtype, dh: int) -> str:
@@ -78,44 +86,68 @@ def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tr
     return _build.Cost(flops, float((2 * sq * hq + 2 * sk * hkv) * b * dh * q.element_size()))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int = 0, scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Sq, Hq, dh]; k, v [B, Sk, Hkv, dh] of q's dtype -> [B, Sq, Hq, dh]."""
-    global launches
-    if q.device.type == "meta":
-        return torch.empty_like(q)
-    _build.check_inputs("flash_attention", q.device, q=q, k=k, v=v)
-    _build.require(q.dtype in _ENTRY, f"flash_attention: dtype {q.dtype} not supported")
-    _build.require(k.dtype == q.dtype and v.dtype == q.dtype,
-                   "flash_attention: k and v must have q's dtype")
-    _build.require(q.dim() == 4 and k.dim() == 4, "flash_attention: q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh]")
+def _check_forward(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Refuse what the kernels do not take; the C entry for q's dtype and head_dim."""
+    _build.check_inputs(what, q.device, q=q, k=k, v=v)
+    _build.require(q.dtype in _ENTRY, f"{what}: dtype {q.dtype} not supported")
+    _build.require(k.dtype == q.dtype and v.dtype == q.dtype, f"{what}: k and v must have q's dtype")
+    _build.require(q.dim() == 4 and k.dim() == 4, f"{what}: q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh]")
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     _build.require(tuple(k.shape) == (b, sk, hkv, dh) and v.shape == k.shape,
-                   "flash_attention: k/v shapes disagree with q")
-    _build.require(hkv > 0 and hq % hkv == 0, "flash_attention: needs Hq % Hkv == 0")
+                   f"{what}: k/v shapes disagree with q")
+    _build.require(hkv > 0 and hq % hkv == 0, f"{what}: needs Hq % Hkv == 0")
     entry = kernel_for(q.dtype, dh)
     if entry == _WGMMA:
         _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-                       "flash_attention: q, k and v must be 16-byte aligned")
+                       f"{what}: q, k and v must be 16-byte aligned")
     else:
         _build.require(hq // hkv <= MAX_GROUP and 0 < dh <= MAX_HEAD_DIM,
-                       f"flash_attention: needs Hq/Hkv <= {MAX_GROUP} and head_dim <= "
-                       f"{MAX_HEAD_DIM}")
+                       f"{what}: needs Hq/Hkv <= {MAX_GROUP} and head_dim <= {MAX_HEAD_DIM}")
+    return entry
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+             scale: Optional[float], lse: Optional[torch.Tensor]) -> torch.Tensor:
+    global launches
+    entry = _check_forward("flash_attention", q, k, v)
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else dh**-0.5)
     out = torch.empty_like(q)
     fn = getattr(_build.library("flash_attention"), entry)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv,
-                    dh, scale, int(bool(causal)), int(window), _build.stream(q.device)),
-                 "flash_attention")
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, dh, scale,
+                    int(bool(causal)), int(window), _build.stream(q.device)), "flash_attention")
     launches += 1
     return out
 
 
-def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, *, causal: bool = True, window: int = 0,
-                             scale: Optional[float] = None
-                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, Sq, Hq, dh]; k, v [B, Sk, Hkv, dh] of q's dtype -> [B, Sq, Hq, dh]."""
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    return _forward(q, k, v, causal, window, scale, None)
+
+
+def forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                     window: int = 0, scale: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s launch that also writes each row's logsumexp of its scaled
+    scores: (out, lse float32 [B, Hq, Sq], natural units, -inf on a row that allows no
+    key), what the backward kernels read."""
+    b, sq, hq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return torch.empty_like(q), lse
+    return _forward(q, k, v, causal, window, scale, lse), lse
+
+
+def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                   do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                   scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``plain(q, k, v, causal=, window=, scale=)`` = ``o`` for the
     output gradient ``do``: (dq, dk, dv) in q's dtype.
 
@@ -185,21 +217,170 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         out(dv.reshape(b, hkv, sk, dh).transpose(1, 2))
 
 
+def _allowed(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """[Sq, Sk] bool: the (query, key) position pairs the masks allow (``allowed_pairs``)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    return ok
+
+
+def plain_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0,
+              scale: Optional[float] = None, rows: int = 512) -> torch.Tensor:
+    """Each query row's logsumexp of its allowed scaled scores in float32, what
+    ``forward_with_lse`` writes: [B, Hq, Sq], -inf on a row that allows no key. Query
+    rows go ``rows`` positions at a time."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = float(scale if scale is not None else dh**-0.5)
+    qf = q.float().reshape(b, sq, hkv, g, dh)
+    kf = k.float()
+    ok = _allowed(sq, sk, causal, window, q.device)
+    out = []
+    for q0 in range(0, sq, rows):
+        q1 = min(sq, q0 + rows)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q0:q1], kf) * scale
+        out.append(torch.logsumexp(s.masked_fill(~ok[q0:q1], float("-inf")), dim=-1))
+    return torch.cat(out, dim=-1).reshape(b, hq, sq)
+
+
+def chunked_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' passes in float32 PyTorch: (dq, dk, dv) in q's dtype.
+
+    (a) D = rowsum(dO ∘ O); (b) for each block of 128 keys, dK and dV summed over the G
+    query heads in turn and each head's 64-position query blocks that the mask lets
+    reach the block, from P = exp(scale·QKᵀ − lse); (c) for each block of 128 query
+    positions, dQ summed over the 64-key tiles its mask reaches. The kernels' blocks
+    hold 64 or 128 rows; a row's sums are the same in either (a tile that adds nothing
+    to a row's sum adds exact zeros). P and scale·dS round to q's dtype before their
+    products, as the kernels round them; everything else is float32."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = float(scale if scale is not None else dh**-0.5)
+    dt = q.dtype
+    rnd = (lambda t: t) if dt == torch.float32 else (lambda t: t.to(dt).float())
+    heads = lambda t: t.float().reshape(b, t.shape[1], hkv, g, dh).permute(0, 2, 3, 1, 4)
+    qh, doh = heads(q), heads(do)                                   # [B, Hkv, G, Sq, dh]
+    kh, vh = (t.float().transpose(1, 2) for t in (k, v))            # [B, Hkv, Sk, dh]
+    delta = (do.float() * o.float()).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    lse = lse.reshape(b, hkv, g, sq)
+    ok = _allowed(sq, sk, causal, window, q.device)
+
+    def probs(s, lse_rows, mask):
+        return torch.where(mask, torch.exp(s * scale - lse_rows), torch.zeros((), device=s.device))
+
+    dk = torch.zeros((b, hkv, sk, dh), device=q.device)
+    dv = torch.zeros_like(dk)
+    n_qt = -(-sq // 64)
+    for k0 in range(0, sk, 128):                                    # (b)
+        k1 = min(sk, k0 + 128)
+        qt0 = min(k0 // 64, n_qt) if causal else 0
+        qt1 = min(n_qt, (k0 + 127 + window - 1) // 64 + 1) if window > 0 else n_qt
+        kb, vb = kh[:, :, k0:k1], vh[:, :, k0:k1]
+        for gi in range(g):
+            for q0 in range(qt0 * 64, qt1 * 64, 64):
+                q1 = min(sq, q0 + 64)
+                qb, dob = qh[:, :, gi, q0:q1], doh[:, :, gi, q0:q1]
+                p = probs(kb @ qb.transpose(-1, -2), lse[:, :, gi, None, q0:q1],
+                          ok[q0:q1, k0:k1].T)                      # Pᵀ [B, Hkv, keys, queries]
+                ds = rnd(p * (vb @ dob.transpose(-1, -2) - delta[:, :, gi, None, q0:q1]) * scale)
+                dv[:, :, k0:k1] += rnd(p) @ dob
+                dk[:, :, k0:k1] += ds @ qb
+    dq = torch.zeros_like(qh)
+    for q0 in range(0, sq, 128):                                    # (c)
+        q1 = min(sq, q0 + 128)
+        t0 = max(0, q0 - window + 1) // 64 if window > 0 else 0
+        t1 = min(-(-sk // 64), (q0 + 127) // 64 + 1) if causal else -(-sk // 64)
+        qb, dob = qh[:, :, :, q0:q1], doh[:, :, :, q0:q1]
+        for k0 in range(t0 * 64, t1 * 64, 64):
+            k1 = min(sk, k0 + 64)
+            kb, vb = kh[:, :, None, k0:k1], vh[:, :, None, k0:k1]
+            p = probs(qb @ kb.transpose(-1, -2), lse[..., q0:q1, None], ok[q0:q1, k0:k1])
+            ds = rnd(p * (dob @ vb.transpose(-1, -2) - delta[..., q0:q1, None]) * scale)
+            dq[:, :, :, q0:q1] += ds @ kb
+    out = lambda t: t.to(dt).contiguous()
+    return (out(dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)), out(dk.transpose(1, 2)),
+            out(dv.transpose(1, 2)))
+
+
+def backward_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                  window: int = 0) -> _build.Cost:
+    """dV, dP, dQ and dK on the allowed pairs (8·dh operations a pair and query head; the
+    recompute of P is the kernels' choice, not the gradient's work); q, k, v, o, dO and
+    the float32 lse read once, dq, dk and dv written once."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    flops = 8.0 * b * hq * dh * allowed_pairs(sq, sk, causal, window)
+    return _build.Cost(flops, float((4 * sq * hq + 4 * sk * hkv) * b * dh * q.element_size()
+                                    + 4 * b * hq * sq))
+
+
+def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+             lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True, window: int = 0,
+             scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels: q, k, v, the forward's o and lse (``forward_with_lse``) and
+    dO of o's shape -> (dq, dk, dv) in q's dtype."""
+    global backward_launches
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    what = "flash_attention backward"
+    entry = _check_forward(what, q, k, v)
+    _build.check_inputs(what, q.device, o=o, lse=lse, do=do)
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    _build.require(o.shape == q.shape and do.shape == q.shape and o.dtype == q.dtype
+                   and do.dtype == q.dtype, f"{what}: o and dO must have q's shape and dtype")
+    _build.require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, hq, sq),
+                   f"{what}: lse must be float32 [B, Hq, Sq]")
+    if entry == _WGMMA:
+        _build.require(o.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0,
+                       f"{what}: o and dO must be 16-byte aligned")
+    scale = float(scale if scale is not None else dh**-0.5)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.library("flash_attention"), _BACKWARD_ENTRY[entry])
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                    b, sq, sk, hq, hkv, dh, scale, int(bool(causal)), int(window),
+                    _build.stream(q.device)), what)
+    backward_launches += 1
+    return dq, dk, dv
+
+
 class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention`` (the kernel; ``plain`` on the CPU) forward,
-    ``flash_attention_backward`` backward."""
+    """``forward_with_lse`` (the kernel; ``plain`` on the CPU) forward, ``backward`` (the
+    kernels; ``plain_backward`` on the CPU) backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        run = plain if q.device.type == "cpu" else flash_attention
-        o = run(q, k, v, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, o)
         ctx.mask = (causal, window, scale)
+        if q.device.type == "cpu":
+            o = plain(q, k, v, causal=causal, window=window, scale=scale)
+            ctx.save_for_backward(q, k, v, o)
+            return o
+        o, lse = forward_with_lse(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, *lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
-        return (*flash_attention_backward(q, k, v, o, do, causal=causal, window=window,
-                                          scale=scale), None, None, None)
+        do = do.contiguous()
+        cost = lambda: backward_cost(q, k, v, causal=causal, window=window)
+        with _build.kernel_scope("flash_attention_backward", cost):
+            if q.device.type == "cpu":
+                grads = plain_backward(q, k, v, o, do, causal=causal, window=window, scale=scale)
+            else:
+                grads = backward(q, k, v, o, lse[0], do, causal=causal, window=window, scale=scale)
+        return (*grads, None, None, None)

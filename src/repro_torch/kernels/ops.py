@@ -16,13 +16,11 @@ version) and on the card.
 Under autograd (grad mode on and an input that requires grad) ``rmsnorm``,
 ``flash_attention``, ``moe_gmm`` and ``ssd`` go to their
 ``torch.autograd.Function`` on every device: the forward is the kernel (its
-plain version on the CPU, empty outputs on ``meta``). The backward of
-``moe_gmm`` and ``ssd`` is a kernel as well (its plain formula on the CPU,
-empty outputs on ``meta``), each call a kernel scope of its own counted by its
-module's ``backward_cost``; that of ``rmsnorm`` and ``flash_attention`` is
-the gradient formula in torch ops, which the counters count op by op.
-``decode_attention`` has no backward (serving runs under
-``torch.inference_mode()``): on a CUDA tensor it raises
+plain version on the CPU, empty outputs on ``meta``), and so is the backward
+(its plain formula, ``plain_backward``, on the CPU; empty outputs on
+``meta``), each backward call a kernel scope of its own, ``<name>_backward``,
+counted by its module's ``backward_cost``. ``decode_attention`` has no
+backward (serving runs under ``torch.inference_mode()``): on a CUDA tensor it raises
 ``NotImplementedError`` there, rather than return an output that no gradient
 passes through; on the CPU and on ``meta`` it runs its plain version inside
 the kernel scope.
@@ -32,7 +30,8 @@ A ``DTensor`` (the sharded steps of ``serving.engine`` and
 on the card, the plain version on the CPU, one launch per call. Each input
 dim is either one the kernel treats independently (a "role": rows of
 ``rmsnorm``; batch and heads of the two attentions, with whole GQA groups
-on a rank; experts of ``moe_gmm``; batch, heads and head_dim of ``ssd``) or
+on a rank; experts and rows (whole routing groups) of ``moe_gmm``; batch,
+heads and head_dim of ``ssd``) or
 one it reduces over. A mesh dimension that shards a role keeps it, and the
 inputs without that role are replicated over it (their gradient there is a
 ``Partial`` sum of each rank's share); every other sharding
@@ -186,10 +185,16 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window: int = 0,
 
 
 def moe_gmm(xe, we, live=None):
-    """``live`` int32 [E, G]: leading rows of each group's block that may be non-zero."""
+    """``live`` int32 [E, G]: leading rows of each group's block that may be non-zero.
+
+    On a DTensor the experts are a role, and so are the rows (the routing groups,
+    which the reference vmaps over the data axes): a mesh dimension that shards
+    ``xe``'s rows keeps them, with ``live``'s groups beside them, so each rank
+    multiplies its own groups against the gathered weights. Where the groups do not
+    divide over it (a decode batch's one group) the rows are replicated."""
     if isinstance(xe, DTensor):
-        e = {"e": 0}
-        return on_shards(moe_gmm, (xe, we, live), (e, e, e), (e,))
+        er = {"e": 0, "r": 1}
+        return on_shards(moe_gmm, (xe, we, live), (er, {"e": 0}, er), (er,))
     with _build.kernel_scope("moe_gmm", lambda: _gmm.cost(xe, we)):
         if _wants_grad(xe, we):
             return _gmm.MoeGmmFunction.apply(xe, we, live)
@@ -213,7 +218,8 @@ def ssd(x, a, b, c, *, chunk: int):
 
 
 # the backward kernels: name -> the module whose ``backward_launches`` counts them
-_BACKWARD_KERNELS = {"moe_gmm_backward": _gmm, "ssd_backward": _ssd}
+_BACKWARD_KERNELS = {"rmsnorm_backward": _rms, "flash_attention_backward": _flash,
+                     "moe_gmm_backward": _gmm, "ssd_backward": _ssd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -32,21 +32,12 @@ each device's own work, counted once.
 The counter also tracks the peak of live bytes that the step allocates
 (storages it has not seen before, each watched through a weak reference), the
 dry-run's ``temp_bytes``.
-
-While a counter is on, the functions of ``_REPLAYED`` (flash's backward, a
-block loop of a few ops per block pair that a training cell calls once a
-layer) are wrapped: on ``meta`` tensors under one counter, a call whose
-tensors' shapes, strides and dtypes and other arguments match one seen before
-is not run again; the counter adds what it counted for the first and returns
-empty outputs of its shapes. It counts the same as running it, and keeps a
-production training cell's count to seconds.
 """
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -54,7 +45,6 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops
 
 aten = torch.ops.aten
@@ -74,9 +64,6 @@ _PARTIAL_WRITES = frozenset({
 _COLLECTIVES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
                 "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
-# (module, name) of functions whose ops depend only on their tensors' shapes, strides and
-# dtypes and on their other arguments: replayed on meta tensors (see the module docstring)
-_REPLAYED = ((_flash, "flash_attention_backward"),)
 
 
 def tensor_bytes(t: torch.Tensor) -> float:
@@ -185,7 +172,6 @@ class CostCounter(TorchDispatchMode):
         self._live: Dict[int, Tuple[StorageWeakRef, float]] = {}
         self._live_upper = 0.0
         self.peak_bytes = 0.0
-        self._memo: Dict[Any, Tuple] = {}
 
     # -- kernels.ops observer
     def kernel_begin(self, name: str, cost) -> None:
@@ -204,57 +190,11 @@ class CostCounter(TorchDispatchMode):
 
     def __enter__(self):
         ops.observers.append(self)
-        self._wrapped = [(mod, name, getattr(mod, name)) for mod, name in _REPLAYED]
-        for mod, name, fn in self._wrapped:
-            setattr(mod, name, functools.partial(self._replay, fn))
         return super().__enter__()
 
     def __exit__(self, *exc):
-        for mod, name, fn in reversed(self._wrapped):
-            setattr(mod, name, fn)
         ops.observers.remove(self)
         return super().__exit__(*exc)
-
-    def _replay(self, fn, *args, **kwargs):
-        """``fn(*args, **kwargs)``, counted once for each distinct call on ``meta``
-        tensors while this is the one counter on: a later call with the same key adds
-        the first call's FLOPs, bytes, op rows and its own peak of live bytes above
-        where it started, and returns empty outputs of the first call's shapes,
-        strides and dtypes."""
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        if ops.observers != [self] or not tensors or any(t.device.type != "meta"
-                                                         for t in tensors):
-            return fn(*args, **kwargs)
-        key = (fn.__qualname__,
-               tuple((tuple(a.shape), a.stride(), a.dtype) if isinstance(a, torch.Tensor) else a
-                     for a in args), tuple(sorted(kwargs.items())))
-        rec = self._memo.get(key)
-        self._prune()
-        live = self._live_upper
-        if rec is None:
-            flops, nbytes, rows = self.flops, self.bytes, {k: list(v) for k, v in self.ops.items()}
-            peak, self.peak_bytes = self.peak_bytes, live
-            out = fn(*args, **kwargs)
-            extra = self.peak_bytes - live
-            self.peak_bytes = max(peak, self.peak_bytes)
-            outs = out if isinstance(out, tuple) else (out,)
-            delta = {k: [v[i] - rows.get(k, [0, 0.0, 0.0])[i] for i in range(3)]
-                     for k, v in self.ops.items() if v != rows.get(k)}
-            self._memo[key] = (self.flops - flops, self.bytes - nbytes, delta, extra,
-                               [(tuple(t.shape), t.stride(), t.dtype) for t in outs],
-                               isinstance(out, tuple))
-            return out
-        d_flops, d_bytes, delta, extra, specs, is_tuple = rec
-        self.flops += d_flops
-        self.bytes += d_bytes
-        for k, v in delta.items():
-            row = self.ops.setdefault(k, [0, 0.0, 0.0])
-            for i in range(3):
-                row[i] += v[i]
-        self.peak_bytes = max(self.peak_bytes, live + extra)
-        outs = tuple(torch.empty_strided(shape, stride, dtype=dtype, device="meta")
-                     for shape, stride, dtype in specs)
-        return outs if is_tuple else outs[0]
 
     # -- live bytes
     def _track(self, ins: List[torch.Tensor], outs: List[torch.Tensor]) -> None:

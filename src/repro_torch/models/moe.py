@@ -35,7 +35,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import swiglu
-from repro_torch.sharding.constraints import unshard
+from repro_torch.sharding.constraints import grad_placed, shard_as, unshard
 
 
 def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -92,17 +92,35 @@ def _expert_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], live: torch.Tensor
     return ops.moe_gmm(F.silu(g) * u, p["w_down"], live)
 
 
+class _GroupsFirst(torch.autograd.Function):
+    """[E, G*C, D] -> [G, E, C, D], contiguous. Its gradient is made contiguous before
+    the reshape back: on a DTensor under autograd, DTensor takes the reshape of a
+    transposed gradient for a view that the local shard's strides do not allow (ROADMAP
+    C's table of DTensor faults). A reshape rather than a split along the rows keeps a
+    row-sharded DTensor sharded, over G."""
+
+    @staticmethod
+    def forward(ctx, y, g):
+        e, rows, d = y.shape
+        ctx.shape = y.shape
+        return y.reshape(e, g, rows // g, d).transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.transpose(0, 1).contiguous().reshape(ctx.shape), None
+
+
 def _groups_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], counts: torch.Tensor) -> torch.Tensor:
     """xe [G, E, C, D] -> [G, E, C, D]: one expert FFN over all groups' rows; ``counts``
-    [G, E] the assignments routed to each expert of each group (kept or not)."""
+    [G, E] the assignments routed to each expert of each group (kept or not). G is the
+    outer factor of the rows [E, G*C, D], so rows sharded over G stay sharded, with
+    ``live`` [E, G] beside them (``ops.moe_gmm``'s row role)."""
     g, e, c, d = xe.shape
     # contiguous before the reshape: on an expert-sharded DTensor under autograd, DTensor
     # takes the reshape for a view that the local shard's strides do not allow
     rows = xe.transpose(0, 1).contiguous().reshape(e, g * c, d)
     live = counts.clamp(max=c).transpose(0, 1).to(torch.int32).contiguous()  # [E, G]
-    # [E, G*C, D] -> [G, E, C, D] without a reshape of a transposed gradient (the same
-    # fault of DTensor under autograd)
-    return torch.stack(_expert_ffn(rows, p, live).split(c, dim=1))
+    return _GroupsFirst.apply(_expert_ffn(rows, p, live), g)
 
 
 def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
@@ -125,7 +143,10 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
     # one-hot first: no [T, k, E, C] intermediate
     combine = torch.einsum("gtke,gtkc->gtec", onehot_e * w[..., None], onehot_c)
 
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x)
+    # each expert's rows are gathered where its weights are (a DTensor's experts sharded
+    # as w_gate's); x's gradient, a Partial sum over those ranks, is reduced where it arrives
+    dispatch = shard_as(dispatch.to(x.dtype), 2, p["w_gate"], 0)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, grad_placed(x))
     # expert-sharded outputs are gathered before the combine contracts E (torch 2.11's
     # DTensor cannot flatten the sharded E into the product's rows)
     ye = unshard(_groups_ffn(xe, p, counts[..., -1]), 1)

@@ -123,6 +123,22 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
                                                 for p in x.placements))
 
 
+def shard_as(x: torch.Tensor, dim: int, like: torch.Tensor, like_dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` sharded over the mesh dimensions where ``like`` shards
+    ``like_dim`` and ``x`` is replicated, if together they divide it (a local slice:
+    no collective), or as it is. The MoE dispatch's experts go where the expert
+    weights are, as the reference's SPMD partitioner places that einsum."""
+    if not isinstance(x, DTensor) or not isinstance(like, DTensor):
+        return x
+    dims = [i for i, (p, q) in enumerate(zip(like.placements, x.placements))
+            if p == Shard(like_dim) and q == Replicate()]
+    ways = math.prod(x.device_mesh.size(i) for i in dims)
+    if not dims or x.shape[dim] % ways:
+        return x
+    return x.redistribute(x.device_mesh, tuple(Shard(dim % x.dim()) if i in dims else q
+                                                for i, q in enumerate(x.placements)))
+
+
 def argmax_last(x: torch.Tensor) -> torch.Tensor:
     """``torch.argmax(x, dim=-1)``; on a DTensor sharded along the last dim (vocab-sharded
     logits) that dim is gathered first. DTensor's own argmax there (torch 2.13)

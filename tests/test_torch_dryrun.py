@@ -375,9 +375,9 @@ def test_a_step_counts_the_same_on_meta_as_on_the_cpu(arch):
 @pytest.mark.parametrize("arch", ("olmoe-1b-7b", "mamba2-130m"))
 def test_a_train_step_counts_the_same_on_meta_as_on_the_cpu(arch):
     """One training step of the smoke config: each kernel's forward counts by its
-    ``cost``, and the backward by its ATen ops (the gradient formulas of ``rmsnorm``
-    and ``flash_attention``, the plain versions' gradients of ``moe_gmm`` and
-    ``ssd``), alike on ``meta`` tensors and on the CPU."""
+    ``cost`` and its backward, a kernel scope of its own (``<name>_backward``: the
+    formula on the CPU, empty outputs on ``meta``), by its ``backward_cost``, alike
+    on ``meta`` tensors and on the CPU."""
     from repro_torch.config.parallel import ParallelPlan
     from repro_torch.configs import get_smoke
     from repro_torch.launch.hlo_counter import corrected_costs
@@ -404,7 +404,8 @@ def test_a_train_step_counts_the_same_on_meta_as_on_the_cpu(arch):
         cc = corrected_costs(build_train_step(api, plan), state, batch)
         counts[device] = (cc.flops, cc.hbm_bytes, cc.kernels, cc.ops)
     assert counts["cpu"] == counts["meta"]
-    assert {"rmsnorm", "moe_gmm" if arch == "olmoe-1b-7b" else "ssd"} <= set(counts["cpu"][2])
+    kernel = "moe_gmm" if arch == "olmoe-1b-7b" else "ssd"
+    assert {"rmsnorm", "rmsnorm_backward", kernel, f"{kernel}_backward"} <= set(counts["cpu"][2])
 
 
 # ------------------------------------------------------------ collectives

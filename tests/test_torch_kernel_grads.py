@@ -1,14 +1,15 @@
 """The gradients of the two kernels on the training path, and the kernels
 without one.
 
-``rmsnorm_backward`` and ``flash_attention_backward`` (the gradient formulas
-that the kernels' ``autograd.Function``s run in their backward) against
+``rmsnorm.plain_backward`` and ``flash_attention.plain_backward`` (the gradient
+formulas that the kernels' ``autograd.Function``s run in their backward on the
+CPU, and that the backward kernels compute on the card) against
 ``jax.vjp`` of the reference's ``rms_norm`` and ``chunked_attention``:
 causal, windowed and non-causal with Sq != Sk, GQA groups of 1, 4 and 16.
 The ``autograd.Function``s wired through the model under every remat
 policy, with the kernel launch swapped for the plain version (the launch
-runs only on the card: ``chip_smoke.py`` phase 6); ``moe_gmm`` and ``ssd``
-going to their ``autograd.Function``s (the backward kernels) and
+runs only on the card: ``chip_smoke.py`` phase 6); every kernel with a
+backward going to its ``autograd.Function`` (the backward kernels) and
 ``decode_attention`` refusing autograd on CUDA rather than dropping a
 gradient, and every kernel's gradient on ``meta`` tensors (the dry-run).
 Inputs come from numpy seeds; everything runs on the CPU.
@@ -91,7 +92,7 @@ def test_rmsnorm_backward_matches_reference_vjp(shape, dtype):
     gj, gt = _pair(rng, shape, dtype)
     _, vjp = jax.vjp(lambda x, s: jax_layers.rms_norm(x, s, 1e-5), xj, sj)
     dx_want, ds_want = vjp(gj)
-    dx, ds = krms.rmsnorm_backward(xt, st, gt, 1e-5)
+    dx, ds = krms.plain_backward(xt, st, gt, 1e-5)
     assert dx.dtype == xt.dtype and ds.dtype == st.dtype
     np.testing.assert_allclose(bridge.to_numpy(dx), np.asarray(dx_want, np.float32), **_tol(dtype))
     # dscale sums a column over every row: relative to its largest entry
@@ -127,7 +128,7 @@ def test_flash_attention_backward_matches_reference_vjp(case, dtype, monkeypatch
                                               q_block=32, kv_block=32)
     out, want = jax.jit(lambda q, k, v, do: (f(q, k, v), jax.vjp(f, q, k, v)[1](do)))(qj, kj, vj, doj)
     o = bridge.to_tensor(np.asarray(out), "cpu")
-    got = kfl.flash_attention_backward(qt, kt, vt, o, dot, causal=causal, window=window)
+    got = kfl.plain_backward(qt, kt, vt, o, dot, causal=causal, window=window)
     for name, g, w, t in zip("qkv", got, want, (qt, kt, vt)):
         assert g.dtype == t.dtype and g.shape == t.shape and g.is_contiguous(), name
         np.testing.assert_allclose(bridge.to_numpy(g), np.asarray(w, np.float32),
@@ -135,12 +136,13 @@ def test_flash_attention_backward_matches_reference_vjp(case, dtype, monkeypatch
 
 
 def test_backward_is_the_formula_not_a_differentiated_forward():
-    """``flash_attention_backward`` runs under ``no_grad`` as well: it records no graph."""
+    """``flash_attention.plain_backward`` runs under ``no_grad`` as well: it records no
+    graph."""
     rng = np.random.default_rng(4)
     q, k, v, do = (_pair(rng, (1, 16, 2, 8))[1] for _ in range(4))
     o = kfl.plain(q, k, v, causal=True)
     with torch.no_grad():
-        got = kfl.flash_attention_backward(q, k, v, o, do, causal=True)
+        got = kfl.plain_backward(q, k, v, o, do, causal=True)
     for t in got:
         assert t.grad_fn is None
     q2, k2, v2 = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -223,8 +225,9 @@ KERNEL_CALLS = {   # each kernel's entry point on tensors of a device that requi
 FUNCTIONS = {"rmsnorm": "RMSNormFunctionBackward",
              "flash_attention": "FlashAttentionFunctionBackward",
              "moe_gmm": "MoeGmmFunctionBackward", "ssd": "SSDFunctionBackward"}
-# the kernels whose backward is a kernel too, by their autograd Function
-BACKWARD_KERNELS = {"moe_gmm": kgmm.MoeGmmFunction, "ssd": kssd.SSDFunction}
+# the kernels whose backward is a kernel too, by their autograd Function: all four
+BACKWARD_KERNELS = {"rmsnorm": krms.RMSNormFunction, "flash_attention": kfl.FlashAttentionFunction,
+                    "moe_gmm": kgmm.MoeGmmFunction, "ssd": kssd.SSDFunction}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CALLS))

@@ -40,7 +40,8 @@ def _counters_stay_zero():
     ops.reset_launch_counts()
     yield
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                   "moe_gmm": 0, "ssd": 0, "moe_gmm_backward": 0,
+                                   "moe_gmm": 0, "ssd": 0, "rmsnorm_backward": 0,
+                                   "flash_attention_backward": 0, "moe_gmm_backward": 0,
                                    "ssd_backward": 0}
 
 

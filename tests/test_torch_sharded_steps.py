@@ -29,6 +29,10 @@ rank saves what it gathered. The tests compare in this process:
     gradient, against the plain gather;
   * flash attention with heads sharded on (1, 2) gathers nothing, and a
     cumsum along a sharded dim sees the whole dim after ``unshard``;
+  * olmoe's MoE layer on (2, 1) with its tokens in 4 routing groups: each rank's
+    ``moe_gmm`` calls take half the groups' rows and count half of one rank's
+    FLOPs, the output and the gradients of x and every weight within ``_tol`` of
+    one rank's; a decode batch's one group keeps the replicated route;
   * ``launch.train`` in a world of 2 equals a world of 1 (losses, grad norms,
     the step-4 checkpoint), and its step-2 checkpoint resumes in a world of 1;
   * ``compress_psum`` equals the reference's under ``jax.vmap`` where the
@@ -91,6 +95,9 @@ PROMPT_LENS = (16, 9, 12, 5)
 LR = 1e-2
 LAUNCH = ["--smoke", "--device", "cpu", "--batch", "2", "--seq", "32", "--log-every", "1",
           "--ckpt-every", "2", "--lr", "1.0"]
+# the MoE layer's routing group sizes over B x S tokens (B x S / 16 = 4 groups: the rows
+# shard over the data axis) and over a decode step's B tokens (one group: replicated)
+MOE_GROUPS = {"rows": 16, "decode": B}
 C_INPUT = np.array([[1.0, 0.3, -0.2, 0.05], [100.0, 0.0, 0.0, 0.0]], np.float32)
 
 
@@ -255,6 +262,50 @@ def _scan_of_a_sharded_dim(mesh):
             "placements": tuple(unshard(dx, -1).placements)}
 
 
+def _moe_layer(mesh, moe_inputs, name):
+    """olmoe smoke's MoE layer (block 0's weights, the expert FFN's F over the data axis as
+    the serve rules place it) on ``MOE_GROUPS[name]``-token routing groups of x sharded
+    over the data axis: each ``moe_gmm`` call's xe placements, local xe shape and output
+    placements, the ``moe_gmm`` FLOPs this rank counts, the output, and the gradients of
+    (y · gy).sum() + aux for x and each weight, gathered."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_counter import CostCounter
+    from repro_torch.models import moe
+
+    cfg = _f32_smoke("olmoe-1b-7b")
+    rep = (Replicate(), Replicate())
+    place = {"router": rep, "w_gate": (Shard(2), Replicate()), "w_up": (Shard(2), Replicate()),
+             "w_down": (Shard(1), Replicate())}
+    x, gy = (moe_inputs[k][name] for k in ("x", "gy"))
+    calls, real = [], ops.moe_gmm
+
+    def seen(xe, we, live=None):
+        out = real(xe, we, live)
+        if isinstance(xe, DTensor):
+            calls.append((tuple(xe.placements), tuple(xe.to_local().shape), tuple(out.placements)))
+        return out
+
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    ops.moe_gmm = seen
+    try:
+        with implicit_replication():
+            dx, dgy = (distribute_tensor(t, mesh, (Shard(0), Replicate())) for t in (x, gy))
+            dp = {k: distribute_tensor(v, mesh, place[k]) for k, v in moe_inputs["params"].items()}
+            with torch.no_grad(), CostCounter() as counter:
+                y, _ = moe.apply_moe(dx, dp, cfg, group_size=MOE_GROUPS[name])
+            forward_calls = list(calls)
+            leaves = [t.requires_grad_(True) for t in (dx, *dp.values())]
+            y2, aux = moe.apply_moe(dx, dp, cfg, group_size=MOE_GROUPS[name])
+            grads = torch.autograd.grad(full((y2 * dgy).sum() + aux), leaves)
+    finally:
+        ops.moe_gmm = real
+    return {"calls": forward_calls, "flops": counter.kernels["moe_gmm"][1], "y": full(y),
+            "grads": [full(g) for g in grads]}
+
+
 def _launch_train(tmp):
     from repro_torch.launch import train
 
@@ -319,6 +370,9 @@ def _rank_main(rank, world, tmp):
         out["flash"] = _flash_collectives(make_mesh((1, 2), ("data", "model"), device_type="cpu"))
         out["cumsum"] = _scan_of_a_sharded_dim(make_mesh((2, 1), ("data", "model"),
                                                          device_type="cpu"))
+        for name in MOE_GROUPS:
+            out[("moe", name)] = _moe_layer(make_mesh((2, 1), ("data", "model"), device_type="cpu"),
+                                            inputs["moe"], name)
         for name, (g, res) in _psum_inputs().items():
             mean, new_res = compress_psum(torch.from_numpy(g[rank]), torch.from_numpy(res[rank]))
             out[("psum", name)] = (mean.numpy(), new_res.numpy())
@@ -356,7 +410,12 @@ def _inputs(tmp):
         train[cfg.name] = [{**{key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
                                for key in ("tokens", "targets")}, **_extras(cfg, rng)}
                            for _ in range(TRAIN_STEPS)]
-    inputs = {"params": params, "extras": extras, "train": train,
+    d = _f32_smoke("olmoe-1b-7b").d_model
+    moe_x = {"rows": (B, S, d), "decode": (B, 1, d)}
+    moe = {"params": {k: v[0] for k, v in params["olmoe-1b-7b"]["blocks"]["moe"].items()},
+           **{key: {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                    for name, shape in moe_x.items()} for key in ("x", "gy")}}
+    inputs = {"params": params, "extras": extras, "train": train, "moe": moe,
               "tokens": torch.from_numpy(rng.integers(0, 256, (B, S))),
               "prompt_lens": torch.tensor(PROMPT_LENS, dtype=torch.int32)}
     unsharded = {arch: _unsharded_serve(arch, inputs) for arch in SERVE_ARCHS}
@@ -531,6 +590,73 @@ def test_a_scan_over_a_sharded_dim_sees_the_whole_dim(worlds):
         scan = got["cumsum"]
         assert scan["placements"] == (Replicate(), Replicate())
         assert torch.equal(scan["got"], scan["want"])
+
+
+def _moe_layer_one_rank(moe_inputs, name):
+    """``_moe_layer`` on one rank: (the moe_gmm FLOPs, the output, the gradients)."""
+    from repro_torch.launch.hlo_counter import CostCounter
+    from repro_torch.models import moe
+
+    cfg = _f32_smoke("olmoe-1b-7b")
+    x, gy = (moe_inputs[k][name].clone() for k in ("x", "gy"))
+    p = {k: v.clone() for k, v in moe_inputs["params"].items()}
+    with torch.no_grad(), CostCounter() as counter:
+        y, _ = moe.apply_moe(x, p, cfg, group_size=MOE_GROUPS[name])
+    leaves = [t.requires_grad_(True) for t in (x, *p.values())]
+    y2, aux = moe.apply_moe(x, p, cfg, group_size=MOE_GROUPS[name])
+    grads = torch.autograd.grad((y2 * gy).sum() + aux, leaves)
+    return counter.kernels["moe_gmm"][1], y, grads
+
+
+def _assert_moe_layer_close(case, want):
+    _, y, grads = want
+    np.testing.assert_allclose(case["y"].numpy(), y.numpy(), **F32_TOL)
+    for name, g, w in zip(("x", "router", "w_gate", "w_up", "w_down"), case["grads"], grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **F32_TOL)
+
+
+def test_moe_expert_products_shard_their_rows_over_the_data_axis(worlds):
+    """ROADMAP C1: with 4 routing groups on (2, 1), each rank's three ``moe_gmm`` calls
+    (gate, up, down) take the rows of its 2 groups, [E, 2C, ·], and return them sharded
+    the same way; each rank counts half of one rank's ``moe_gmm`` FLOPs; the output and
+    the gradients of x and of every weight (the experts' a ``Partial`` sum of the ranks'
+    rows) are one rank's within ``_tol``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.moe import expert_capacity
+
+    inputs, results = worlds[0], worlds[1]
+    want = _moe_layer_one_rank(inputs["moe"], "rows")
+    cfg = _f32_smoke("olmoe-1b-7b")
+    groups = B * S // MOE_GROUPS["rows"]
+    rows = groups * expert_capacity(cfg, MOE_GROUPS["rows"])
+    sharded = (Shard(1), Replicate())
+    for got in results[2]:
+        case = got[("moe", "rows")]
+        assert [(pl, shape[:2], out) for pl, shape, out in case["calls"]] == \
+            [(sharded, (cfg.num_experts, rows // 2), sharded)] * 3
+        assert case["flops"] == want[0] / 2
+        _assert_moe_layer_close(case, want)
+
+
+def test_a_decode_batchs_one_group_keeps_the_replicated_route(worlds):
+    """A decode step routes its B tokens as one group, which the data axis cannot
+    divide: each rank multiplies every row and counts one rank's FLOPs, the output
+    replicated, and the output and gradients are one rank's within ``_tol``."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.moe import expert_capacity
+
+    inputs, results = worlds[0], worlds[1]
+    want = _moe_layer_one_rank(inputs["moe"], "decode")
+    cfg = _f32_smoke("olmoe-1b-7b")
+    rows = expert_capacity(cfg, MOE_GROUPS["decode"])
+    for got in results[2]:
+        case = got[("moe", "decode")]
+        assert [(shape[:2], out) for _, shape, out in case["calls"]] == \
+            [((cfg.num_experts, rows), (Replicate(), Replicate()))] * 3
+        assert case["flops"] == want[0]
+        _assert_moe_layer_close(case, want)
 
 
 def _launch_world_of_one(ckpt_dir, steps=4):

@@ -4,7 +4,7 @@
 One row an (arch, shape): each mesh's counted FLOPs over ``model_flops``,
 bottleneck and peak GiB a device, and (single-pod mesh) the shares of the
 counted FLOPs: dense matmuls, batched matmuls (einsum: MoE dispatch and
-combine, attention's gradient), the attention kernels, and ``moe_gmm`` and
+combine), the attention kernels with flash's backward kernel, and ``moe_gmm`` and
 ``ssd`` with their backward kernels.
 
 With two directories (``--compare A B``, e.g. a grid at ``--grad-accum 1`` and one
@@ -26,7 +26,8 @@ from repro_torch.configs import ARCH_IDS
 from repro_torch.launch.dryrun import MESHES
 
 _SHARES = (("mm", ("aten.mm", "aten.addmm")), ("bmm", ("aten.bmm", "aten.baddbmm")),
-           ("attn", ("kernel:flash_attention", "kernel:decode_attention")),
+           ("attn", ("kernel:flash_attention", "kernel:flash_attention_backward",
+                     "kernel:decode_attention")),
            ("gmm/ssd", ("kernel:moe_gmm", "kernel:ssd", "kernel:moe_gmm_backward",
                         "kernel:ssd_backward")))
 
