@@ -184,6 +184,13 @@ TRAIN_RMS_SHAPE = (2, 4096, 4096)
 TRAIN_FLASH_CASES = (("granite", 2, 4096, 4096, 32, 8, 128, True),
                      ("whisper cross", 1, 448, 1500, 8, 8, 64, False))
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# each of a backward kernel's gradients against its chunked reference (the kernel's passes
+# in float32, rounding where the kernel rounds): (the error's norm as a fraction of the
+# reference's, rtol, atol as a fraction of the reference's rms); at most NEAR_OUTLIERS of
+# the elements may lie beyond rtol·|want| + atol·rms, where P or dS rounded to bf16 on the
+# other side of a tie in the two sums' orders
+NEAR_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2e-3, 2**-6, 1e-2)}
+NEAR_OUTLIERS = 1e-4
 TRAIN_BUDGET_BYTES, TRAIN_BYTES_PER_PARAM = 60e9, 16
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_LR = 8, 4, 1e-3
 # (c) each model and its steps: granite-8b as before, then the MoE, SSM and hybrid families
@@ -362,6 +369,27 @@ def _check(name, got, want, dtype_name, tol=None):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def _check_near(name, got, want, dtype_name):
+    """``got`` against a reference that rounds where the kernel rounds (``NEAR_TOL``): the
+    error's norm within a fraction of the reference's, and all but ``NEAR_OUTLIERS`` of
+    the elements within rtol·|want| + atol·rms(want). Unlike ``GRAD_TOL``'s absolute part,
+    both are small beside the typical element, so a dropped or mis-scaled tile shows,
+    whether it spans the tensor or a few rows. Returns the error's relative norm."""
+    norm_tol, rtol, atol = NEAR_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt().item()
+    err = (g - w).abs()
+    rel = (err.square().sum().sqrt() / w.square().sum().sqrt().clamp_min(1e-30)).item()
+    out = int((err > rtol * w.abs() + atol * rms).sum())
+    ok = rel <= norm_tol and out <= NEAR_OUTLIERS * w.numel()
+    log(f"[kernels] {name}: max_abs_err {err.max().item():.3e}, relative norm {rel:.3e} (need "
+        f"<= {norm_tol:g}), {out} of {w.numel()} beyond {rtol:g}·|want| + {atol:g}·rms "
+        f"(need <= {NEAR_OUTLIERS:g} of them) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its chunked reference")
+    return rel
 
 
 def phase_kernels(torch, timer: Timer):
@@ -731,7 +759,8 @@ def phase_kernels(torch, timer: Timer):
                    c.flops, dtn, "float32", tol=1e-3 if dtn == "float32" else 3e-2)
     rows.append(e_ssd)
     rows += backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged)
-    ssd_backward_passes(torch)
+    for passes in BACKWARD_PASSES.values():
+        passes(torch)
     return rows
 
 
@@ -819,7 +848,8 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
     """Phase 2's rows of the flash attention and rmsnorm backward kernels, each against
     its ``plain_backward`` at the training shapes (``TRAIN_FLASH_BACKWARD_CASES``: granite's
     causal G = 4, whisper's non-causal cross, hymba's window 1024 at G = 5; and
-    ``TRAIN_RMS_SHAPE``), bf16 and float32, under ``GRAD_TOL``; each call made twice on
+    ``TRAIN_RMS_SHAPE``), bf16 and float32, under ``GRAD_TOL``, and each gradient on its
+    own against ``chunked_backward_reference`` under ``NEAR_TOL``; each call made twice on
     its first input set must give bitwise-equal gradients (no float atomics). The flash
     forward's logsumexp is held against ``plain_lse`` first. The library is SDPA's and
     ``F.rms_norm``'s backward, ``torch.autograd.grad`` on a graph saved once."""
@@ -850,6 +880,12 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
                     if not torch.equal(torch.isfinite(lse), fin):
                         raise AssertionError(f"flash lse {what}: -inf rows differ")
                     _repeats(torch, lambda: kfl.backward(q, k, v, o, lse, do, **mask), repeat)
+                    got = kfl.backward(q, k, v, o, lse, do, **mask)
+                    ref = kfl.chunked_backward_reference(q, k, v, o, lse, do, **mask)
+                    for n, a, w in zip(("dq", "dk", "dv"), got, ref):
+                        _check_near(f"flash_attention backward {what} {n} {dtn} against "
+                                    "chunked_backward_reference", a, w, dtn)
+                    del got, ref
                 lib = None
                 if has_gqa:
                     leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
@@ -885,6 +921,10 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
             x, sc, g = rnd(shape, dt), rnd(shape[-1:], dt), rnd(shape, dt)
             if not repeat:
                 _repeats(torch, lambda: krms.backward(x, sc, g), repeat)
+                for n, a, w in zip(("dx", "dscale"), krms.backward(x, sc, g),
+                                   krms.chunked_backward_reference(x, sc, g)):
+                    _check_near(f"rmsnorm backward {n} {dtn} against chunked_backward_reference",
+                                a, w, dtn)
             lib = None
             if lib_rms is not None:
                 leaves = [x.detach().requires_grad_(True), sc.detach().requires_grad_(True)]
@@ -1003,6 +1043,49 @@ def ssd_backward_passes(torch):
                 + ", ".join(f"{k} {v:.5f} ms" for k, v in passes.items()))
             del x, bm, cm, a, dy, hf, ws
             torch.cuda.empty_cache()
+
+
+def flash_backward_passes(torch):
+    """The flash attention backward kernel's device ms by launch (D, dK/dV, dQ), bf16, at
+    ``TRAIN_FLASH_BACKWARD_CASES``, from the profiler's events."""
+    from repro_torch.kernels import flash_attention as kfl
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for what, b, sq, sk, hq, hkv, dh, causal, window in TRAIN_FLASH_BACKWARD_CASES:
+        q, k, v, do = (rnd(s) for s in ((b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh),
+                                        (b, sq, hq, dh)))
+        mask = dict(causal=causal, window=window)
+        o, lse = kfl.forward_with_lse(q, k, v, **mask)
+        _log_passes(f"flash_attention backward passes, {what} q[{b},{sq},{hq},{dh}] "
+                    f"kv[{b},{sk},{hkv},{dh}] window={window} bf16", kernel_device_ms(
+                        torch, 10, lambda: kfl.backward(q, k, v, o, lse, do, **mask)))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
+def rmsnorm_backward_passes(torch):
+    """The rmsnorm backward kernel's device ms by launch (rows, scale), bf16, at
+    ``TRAIN_RMS_SHAPE``, from the profiler's events."""
+    from repro_torch.kernels import rmsnorm as krms
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    shape = TRAIN_RMS_SHAPE
+    x, scale, g = rnd(shape), rnd(shape[-1:]), rnd(shape)
+    _log_passes(f"rmsnorm backward passes, x{list(shape)} bf16",
+                kernel_device_ms(torch, 10, lambda: krms.backward(x, scale, g)))
+
+
+def _log_passes(what: str, by_name: dict) -> None:
+    log(f"[kernels] {what}: total {sum(by_name.values()):.5f} ms; "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in by_name.items()))
+
+
+# each backward kernel's timing by launch, run at the end of phase 2 (``tools/backward_passes.py``
+# runs them alone, for one or more source trees)
+BACKWARD_PASSES = {"ssd": ssd_backward_passes, "flash_attention": flash_backward_passes,
+                   "rmsnorm": rmsnorm_backward_passes}
 
 
 def expected_launches(cfg, prefills: int, steps: int):

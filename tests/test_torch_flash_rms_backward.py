@@ -8,9 +8,14 @@ allow no key; the row logsumexp they read (``plain_lse``, what the forward kerne
 write) against numpy's. ``backward_cost`` against ``allowed_pairs`` and its formula.
 Each Function's backward on the CPU is ``plain_backward`` inside its own kernel scope,
 and on ``meta`` tensors returns empty outputs of the gradients' shapes; the wrappers
-refuse CPU tensors; the C entries have their ctypes signatures. The launches run
-only on the card (``chip_smoke.py`` phases 2 and 6). Inputs come from numpy seeds.
+refuse CPU tensors; the C entries have their ctypes signatures. ``chip_smoke.py``'s
+check of each kernel gradient against its chunked reference takes a rounding flip and
+refuses a dropped or mis-scaled tile; a row that allows no key is pinned as ROADMAP C3
+leaves it. The launches run only on the card (``chip_smoke.py`` phases 2 and 6). Inputs
+come from numpy seeds.
 """
+import importlib.util
+import pathlib
 import re
 
 import numpy as np
@@ -144,6 +149,66 @@ def test_flash_chunked_backward_reference_equals_the_formula(case):
     want = kfl.plain_backward(q, k, v, o, do, causal=causal, window=window)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_a_row_that_allows_no_key_averages_v_but_passes_no_gradient_back():
+    """ROADMAP C3, pinned as it stands: on a row that allows no key the forward gives the
+    mean of V over every key, as the reference does, but ``plain_backward`` (and the
+    kernels, which ``chunked_backward_reference`` mirrors) passes that row's output
+    gradient to nothing, where the reference passes it to all of V. No training shape
+    has such a row: it needs a window and Sq > Sk + window - 1."""
+    case = FLASH_CASES[3]
+    _, sq, sk, _, hkv, _, causal, window = case
+    (_, q), (_, k), (_, v), (_, do) = _flash_inputs(case, "float32", seed=6)
+    dead = _no_key_rows(sq, sk, causal, window)
+    o = kfl.plain(q, k, v, causal=causal, window=window)
+    g = q.shape[2] // hkv
+    mean_v = v.mean(dim=1, keepdim=True).repeat_interleave(g, dim=2)
+    torch.testing.assert_close(o[:, dead], mean_v.expand(-1, len(dead), -1, -1))
+    only_dead = torch.zeros_like(do)
+    only_dead[:, dead] = do[:, dead]
+    grads = kfl.plain_backward(q, k, v, o, only_dead, causal=causal, window=window)
+    assert not any(bool(t.any()) for t in grads)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smokes_near_check_takes_rounding_and_refuses_a_dropped_or_misscaled_tile(dtype):
+    """``chip_smoke._check_near``, which holds each gradient of the card's backward kernels
+    against ``chunked_backward_reference``: a logsumexp one float32 ulp off (P rounding to
+    bf16 on the other side, as the kernel's ``exp2`` may) passes; one 64-key tile left out
+    of every row (a middle one, or the last), or the last query block's dq at half its
+    size, fails, at a small causal G = 4 shape."""
+    smoke = _chip_smoke()
+    case = (1, 512, 512, 8, 2, 64, True, 0)
+    (_, q), (_, k), (_, v), (_, do) = _flash_inputs(case, dtype, seed=4)
+    o = kfl.plain(q, k, v)
+    lse = kfl.plain_lse(q, k)
+    want = kfl.chunked_backward_reference(q, k, v, o, lse, do)
+    nudged = kfl.chunked_backward_reference(q, k, v, o, torch.nextafter(lse, lse + 1), do)
+    for name, g, w in zip(("dq", "dk", "dv"), nudged, want):
+        smoke._check_near(f"d{name}", g, w, dtype)
+    allowed = kfl._allowed
+    wrong = []
+    try:
+        for tile in (3, 7):   # a middle one, and the last, which only the last rows reach
+            kfl._allowed = lambda *a, tile=tile: allowed(*a) & (torch.arange(512)[None] // 64 != tile)
+            wrong += zip(("dq", "dk", "dv"), kfl.chunked_backward_reference(q, k, v, o, lse, do),
+                         want)
+    finally:
+        kfl._allowed = allowed
+    halved = want[0].clone()
+    halved[:, -128:] *= 0.5
+    for name, g, w in (*wrong, ("dq", halved, want[0])):
+        with pytest.raises(AssertionError):
+            smoke._check_near(name, g, w, dtype)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=_IDS)
