@@ -211,6 +211,23 @@ TRAIN_SSD_CASES = (("mamba2", 2, 4096, 24, 64, 128, 128), ("hymba", 2, 4096, 50,
 # window); rmsnorm's at TRAIN_RMS_SHAPE
 TRAIN_FLASH_BACKWARD_CASES = tuple(c + (0,) for c in TRAIN_FLASH_CASES) + (
     ("hymba sliding", 2, 4096, 4096, 25, 5, 64, True, 1024),)
+# ... and phase 2's checks beyond them: rows that allow no key (ROADMAP C3: queries from
+# Sk + window - 1 = 499 on, at both tensor-core head dims), and a ragged G = 1 shape
+FLASH_BACKWARD_CHECK_CASES = (("no-key rows", 1, 600, 200, 8, 2, 128, True, 300),
+                              ("no-key rows", 1, 600, 200, 8, 2, 64, True, 300),
+                              ("ragged G=1", 1, 1000, 777, 4, 4, 64, True, 0))
+# calls of each phase 2 backward case on one input set, all bitwise equal (no float atomics;
+# the one-pass flash kernel's ordered dQ sums under contention); the last runs while another
+# stream keeps the card busy with BUSY_PASSES elementwise passes over BUSY_ELEMENTS bf16 (the
+# one pass's cooperative grid then waits for its SMs rather than spinning on blocks left out;
+# elementwise, not a product, so that no stream is left holding a cuBLAS workspace)
+BACKWARD_REPEATS = 10
+BUSY_PASSES, BUSY_ELEMENTS = 16, 1 << 27
+# flash's backward routes timed against each other at head_dim 64 beyond the training cases:
+# whisper-base's decoder self-attention (8 sequences of 448 in training) and hymba-1.5b's
+# three global layers (causal, no window)
+FLASH_ROUTE_CASES = (("whisper self", 8, 448, 448, 8, 8, 64, True, 0),
+                     ("hymba global", 2, 4096, 4096, 25, 5, 64, True, 0))
 # the backward kernels' counters, 0 in every run that trains nothing
 NO_BACKWARD = {"rmsnorm_backward": 0, "flash_attention_backward": 0, "moe_gmm_backward": 0,
                "ssd_backward": 0}
@@ -358,6 +375,8 @@ def phase_build():
     for r in records.values():
         how = "cache hit" if r.cached else f"nvcc {r.seconds:.2f} s"
         log(f"[build] {r.name}: {how} -> {r.path.name}")
+        if "C7508" in r.log:   # ptxas ignored a setmaxnreg: the warp roles keep one register budget
+            raise AssertionError(f"{r.name}: the build log has C7508 (setmaxnreg ignored)")
     log(f"[build] total {time.perf_counter() - t0:.2f} s")
 
 
@@ -839,9 +858,20 @@ def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
 
 
 def _repeats(torch, fn, out: list) -> None:
-    """Appends to ``out`` whether two calls of ``fn`` give bitwise-equal outputs."""
-    a, b = fn(), fn()
-    out.append(all(bool(torch.equal(x, y)) for x, y in zip(a, b)))
+    """Appends to ``out`` whether ``BACKWARD_REPEATS`` calls of ``fn`` give bitwise-equal
+    outputs, the last made while a side stream runs ``BUSY_PASSES`` elementwise passes."""
+    a = fn()
+    same = all(all(bool(torch.equal(x, y)) for x, y in zip(a, fn()))
+               for _ in range(BACKWARD_REPEATS - 2))
+    load = torch.ones(BUSY_ELEMENTS, device="cuda", dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        for _ in range(BUSY_PASSES):
+            load.mul_(1.0)
+    busy = fn()
+    torch.cuda.synchronize()
+    out.append(same and all(bool(torch.equal(x, y)) for x, y in zip(a, busy)))
 
 
 def attn_norm_backward_rows(torch, rnd, meta, record):
@@ -849,10 +879,13 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
     its ``plain_backward`` at the training shapes (``TRAIN_FLASH_BACKWARD_CASES``: granite's
     causal G = 4, whisper's non-causal cross, hymba's window 1024 at G = 5; and
     ``TRAIN_RMS_SHAPE``), bf16 and float32, under ``GRAD_TOL``, and each gradient on its
-    own against ``chunked_backward_reference`` under ``NEAR_TOL``; each call made twice on
-    its first input set must give bitwise-equal gradients (no float atomics). The flash
-    forward's logsumexp is held against ``plain_lse`` first. The library is SDPA's and
-    ``F.rms_norm``'s backward, ``torch.autograd.grad`` on a graph saved once."""
+    own against ``chunked_backward_reference`` under ``NEAR_TOL``; each call made
+    ``BACKWARD_REPEATS`` times on its first input set must give bitwise-equal gradients (no
+    float atomics; flash's dQ sums taken in a fixed order). Flash also runs
+    ``FLASH_BACKWARD_CHECK_CASES``: rows that allow no key (their output gradient reaches
+    every key's dV as dO/Sk) and a ragged G = 1 shape. The flash forward's logsumexp is held
+    against ``plain_lse`` first. The library is SDPA's and ``F.rms_norm``'s backward,
+    ``torch.autograd.grad`` on a graph saved once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfl
@@ -863,7 +896,8 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:105")
     for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        for what, b, sq, sk, hq, hkv, dh, causal, window in TRAIN_FLASH_BACKWARD_CASES:
+        for what, b, sq, sk, hq, hkv, dh, causal, window in (TRAIN_FLASH_BACKWARD_CASES
+                                                             + FLASH_BACKWARD_CHECK_CASES):
             repeat = []
 
             def make(b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, window=window, dt=dt,
@@ -902,12 +936,14 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
                                   meta((b, sk, hkv, dh), dt), causal=causal, window=window)
             case = (f"{what} q[{b},{sq},{hq},{dh}] kv[{b},{sk},{hkv},{dh}] "
                     f"{'causal' if causal else 'non-causal'} window={window} "
-                    f"[{kfl.kernel_for(dt, dh)}]")
+                    f"[{kfl.kernel_for(dt, dh)}"
+                    f"{', one pass' if kfl.one_pass_for(dt, dh, causal, window) else ''}]")
             record(e_fl, dtn == "bfloat16" and what == "granite", "flash_attention backward", case,
                    make, c.bytes, c.flops, dtn, dtn, tol=GRAD_TOL[dtn])
             if not repeat[0]:
-                raise AssertionError(f"flash_attention backward {case} {dtn}: two runs differ")
-            log(f"[kernels] flash_attention backward {case} {dtn}: two runs bitwise equal")
+                raise AssertionError(f"flash_attention backward {case} {dtn}: runs differ")
+            log(f"[kernels] flash_attention backward {case} {dtn}: {BACKWARD_REPEATS} runs bitwise "
+                "equal")
         torch.cuda.empty_cache()
 
     e_rms = dict(name="rmsnorm_backward", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
@@ -938,8 +974,8 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
         record(e_rms, dtn == "bfloat16", "rmsnorm backward", case, make, c.bytes, c.flops, dtn,
                "float32", tol=GRAD_TOL[dtn])
         if not repeat[0]:
-            raise AssertionError(f"rmsnorm backward {case} {dtn}: two runs differ")
-        log(f"[kernels] rmsnorm backward {case} {dtn}: two runs bitwise equal")
+            raise AssertionError(f"rmsnorm backward {case} {dtn}: runs differ")
+        log(f"[kernels] rmsnorm backward {case} {dtn}: {BACKWARD_REPEATS} runs bitwise equal")
     torch.cuda.empty_cache()
     return [e_rms, e_fl]
 
@@ -1046,20 +1082,33 @@ def ssd_backward_passes(torch):
 
 
 def flash_backward_passes(torch):
-    """The flash attention backward kernel's device ms by launch (D, dK/dV, dQ), bf16, at
-    ``TRAIN_FLASH_BACKWARD_CASES``, from the profiler's events."""
+    """The flash attention backward kernel's device ms by launch, bf16, at
+    ``TRAIN_FLASH_BACKWARD_CASES`` and ``FLASH_ROUTE_CASES``, from the profiler's events, by
+    each route the tree has: the route ``one_pass_for`` takes, and at head_dim 64 also the
+    other one. The one pass is ``flash_bwd_prep`` (D and the base-2 lse), ``flash_bwd_wgmma``
+    and ``flash_bwd_dq_convert`` (the ordered dQ sums to bf16); the two kernels are
+    ``flash_bwd_prep``, ``flash_bwd_wgmma`` (dK/dV) and ``flash_bwd_dq_wgmma``. On a tree
+    without ``one_pass_for`` (an earlier one) the route it takes."""
     from repro_torch.kernels import flash_attention as kfl
 
+    routes = hasattr(kfl, "one_pass_for")
     gen = torch.Generator(device="cuda").manual_seed(9)
     rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    for what, b, sq, sk, hq, hkv, dh, causal, window in TRAIN_FLASH_BACKWARD_CASES:
+    for what, b, sq, sk, hq, hkv, dh, causal, window in (TRAIN_FLASH_BACKWARD_CASES
+                                                         + FLASH_ROUTE_CASES):
         q, k, v, do = (rnd(s) for s in ((b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh),
                                         (b, sq, hq, dh)))
         mask = dict(causal=causal, window=window)
         o, lse = kfl.forward_with_lse(q, k, v, **mask)
-        _log_passes(f"flash_attention backward passes, {what} q[{b},{sq},{hq},{dh}] "
-                    f"kv[{b},{sk},{hkv},{dh}] window={window} bf16", kernel_device_ms(
-                        torch, 10, lambda: kfl.backward(q, k, v, o, lse, do, **mask)))
+        taken = kfl.one_pass_for(q.dtype, dh, causal, window) if routes else None
+        for one in ((taken, not taken) if routes and dh == 64 else (taken,)):
+            name = {None: "", True: " [one pass]", False: " [two kernels]"}[one]
+            call = ((lambda: kfl.backward(q, k, v, o, lse, do, **mask)) if one is None else
+                    (lambda: kfl._backward(q, k, v, o, lse, do, causal, window, None, one)))
+            _log_passes(f"flash_attention backward passes, {what} q[{b},{sq},{hq},{dh}] "
+                        f"kv[{b},{sk},{hkv},{dh}] window={window} bf16{name}"
+                        f"{' (taken)' if one is not None and one == taken else ''}",
+                        kernel_device_ms(torch, 10, call))
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 

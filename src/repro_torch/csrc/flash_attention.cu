@@ -62,31 +62,57 @@
 //
 // The backward (flash_attention_backward_*; the TPU kernel has none: XLA
 // differentiates repro/models/attention.py:chunked_attention), the formula of
-// kernels/flash_attention.py:plain_backward, FlashAttention-2's split without float
-// atomics, so a run repeats bitwise. Three launches:
-//   a. flash_bwd_delta<T>: D = rowsum(dO * O) in float32, one warp a row, into a
-//      float32 workspace [B, Hq, Sq].
-//   b. dK and dV: one block per (key block, KV head, batch) keeps its keys' dK and dV
-//      in registers and walks, for each of the G query heads of its KV head in turn,
-//      the query blocks its mask lets reach its keys (causal, windowed, Sq != Sk as
-//      in kernels/flash_attention.py:allowed_pairs): it recomputes
-//      P = exp(scale * Q K^T - lse), then dV += P^T dO, dP = dO V^T,
-//      dS = P * (dP - D) * scale, dK += dS^T Q. The G heads sum in a fixed order.
-//   c. dQ: one block per (query head, query block, batch) walks the key blocks its
-//      mask allows: dQ += dS K with P and dS recomputed as in (b).
-//   P and scale * dS round to q's dtype before their products (bf16: as
-//   plain_backward rounds them); the products sum in float32.
-// Bound on the H100: operations (8 * dh flops a head and allowed pair, the
-// recompute aside). bf16 at head_dim 64 and 128 runs (b) and (c) on the tensor
-// cores (flash_bwd_dkdv_wgmma<DH, NWG>, flash_bwd_dq_wgmma<DH, NWG>: the forward's
-// tiles, swizzle, cp.async ring and wgmma forms; S^T and dP^T are m64n64 products
-// with K (V) the A operand and Q (dO) the K-major B operand, dV and dK take P^T and
-// dS^T from registers as the forward takes P, with dO and Q read MN-major under the
-// transpose bit; dQ reads K MN-major the same way). Each product is a wgmma group of
-// its own, waited for where its result is first read, so the softmax's arithmetic
-// runs while the next product multiplies. A block is NWG warpgroups of 64 rows: two
-// at head_dim 128, one at 64 (two blocks an SM). float32, and bf16 at other head
-// dims (<= 128), run them on the CUDA cores (simt::flash_bwd_simt<T, KV>).
+// kernels/flash_attention.py:plain_backward, without float atomics, so a run repeats
+// bitwise. P and scale * dS round to q's dtype before their products (bf16: as
+// plain_backward rounds them); the products sum in float32. A query row that allows no
+// key (from Sk + window - 1 on) is, in plain, the mean of V over every key and the zero
+// columns that pad Sk to its KV block: flash_bwd_dead, launched only for such shapes, sums
+// the G heads' such rows of dO in a fixed order into a float32 [B, Hkv, dh] vector (divided
+// by that count, `dead_keys`) that every dK/dV epilogue adds to dV, and writes their dq = 0
+// (ROADMAP C3; the forward kernels do not give that mean yet, C4). Bound on the H100: operations (dV, dP, dQ, dK: 8 * dh flops
+// a head and allowed pair).
+//
+// The bf16 backward at head_dim 64 and 128 runs on the tensor cores by one of two routes; the
+// wrapper chooses (kernels/flash_attention.py:one_pass_for: the one pass under a causal
+// sliding window, the two kernels otherwise) and the entry runs the one pass when it is handed
+// the ordered dQ sums. Both start with flash_bwd_prep: D = rowsum(dO * O) and the lse in base
+// 2 (+inf where no key is allowed, and past Sq) into a float32 [2, B, Hq, Sqp] workspace.
+// Both walk items of 128 keys of one KV head and batch row: two consumer warpgroups own 64 keys
+// each and keep their dK and dV in registers; for each query tile the item's mask reaches
+// (backward_plan), the G heads in turn, a step computes S^T = K Q^T and dP^T = V dO^T (m64n64,
+// K and V resident), P^T, dS^T, dV += P^T dO and dK += dS^T Q; dK and dV leave through the K
+// and V tiles by TMA stores. Q, dO, lse and D stream through a two-stage ring on mbarrier
+// full/empty pairs, loaded by TMA (128-byte swizzle, the layout hopper::swz and desc read).
+// 1. The one pass (head_dim 64): prep, flash_bwd_wgmma<64, true>, flash_bwd_dq_convert<64>.
+//    A persistent grid of co-resident blocks, launched cooperatively (all resident at once, or
+//    the launch fails: it never spins on a block that other work keeps off the card), walks
+//    the work list of backward_schedule. A step also computes the dQ partial dS K over the
+//    warpgroup's own keys (dS^T through a shared tile, bf16): five products where the two
+//    kernels need seven. A producer warpgroup (setmaxnreg 40, consumers 232) holds the loader
+//    warp, which loads each item's K and V once, and two dQ writer warps, one a buffer: the
+//    writer adds the two warpgroups' partials in shared memory, waits until the tile's flag
+//    counts the key blocks before this one (ld.acquire), stores or bulk-adds
+//    (cp.reduce.async.bulk) the 64 x 64 float32 partial into the tile's sum, frees the buffer
+//    once read, and publishes the next turn (st.release) once written. A tile takes its
+//    partials from its highest key block down, the work list's order, so an item waits only
+//    on items taken earlier by resident blocks; under causal and windowed masks none waits.
+//    flash_bwd_dq_convert writes each tile's sum as bf16 rows of dq.
+// 2. The two kernels (head_dim 64 and 128): prep, flash_bwd_wgmma<DH, false> (dK/dV, one
+//    block an item, no dQ), flash_bwd_dq_wgmma<DH> (dQ of 64 query positions a block: the
+//    producer loads Q and dO once and streams 64-key K and V tiles; the two consumer
+//    warpgroups take alternate tiles and recompute S and dP; the second's dQ is added to the
+//    first's through shared memory). At head_dim 64 the dK/dV pass has the producer warpgroup
+//    (setmaxnreg 24, consumers 240); at 128 its thread 0 issues the loads between steps
+//    instead: with a ninth warp ptxas gives every thread 168 registers and the 192 float32
+//    accumulators of dK, dV, S^T and dP^T spill (setmaxnreg's budget does not change that).
+// What bounds them: at head_dim 64 a step's tensor-core work is small beside its fixed costs
+// (the softmax, the barriers, the one pass's hand-over of the dQ partial), so both reach a
+// small share of their bound; the two kernels recompute S and dP for dQ (seven products); the
+// one pass's fixed order is a chain without a sliding window (the last of n key blocks starts
+// n - 1 steps late), which is why it runs only under one (PERF.md has both routes' times).
+// 3. float32, and bf16 at other head dims (<= 128): flash_bwd_delta, then dK/dV and dQ on
+//    the CUDA cores (simt::flash_bwd_simt<T, KV>).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,6 +128,44 @@ constexpr float kNegInf = -1e30f;
 // a row that allows no key (lse -inf) gets +inf, so every P of it is 0.
 __device__ __forceinline__ float lse_base2(float lse) {
   return lse == -INFINITY ? INFINITY : lse * 1.4426950408889634f;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_float(float v, float* out) { *out = v; }
+__device__ __forceinline__ void from_float(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
+
+// The rows that allow no key (query positions from sq0 = Sk + window - 1 on): each is the
+// mean of V over `keys` columns (kernels/flash_attention.py:dead_row_keys: Sk and the zero
+// columns that pad it to the plain version's KV block), so it passes dO / keys to every key's
+// dV and nothing to dQ and dK. One block a (batch, KV head) sums the G heads' such rows of dO,
+// in a fixed order, into dead_dv [B, Hkv, dh] (float32; the dK/dV epilogue adds it before dV
+// rounds) and writes their dq = 0.
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_bwd_dead(const T* __restrict__ dout, float* __restrict__ dead_dv, T* __restrict__ dq, int sq,
+               int keys, int hq, int hkv, int dh, int sq0) {
+  const int bb = blockIdx.x / hkv, kvh = blockIdx.x % hkv, g = hq / hkv;
+  for (int d = threadIdx.x; d < dh; d += 128) {
+    float sum = 0.f;
+    for (int gi = 0; gi < g; ++gi) {
+      for (int i = sq0; i < sq; ++i) {
+        const int64_t at = ((static_cast<int64_t>(bb) * sq + i) * hq + kvh * g + gi) * dh + d;
+        sum += to_float(dout[at]);
+        from_float(0.f, &dq[at]);
+      }
+    }
+    dead_dv[(static_cast<int64_t>(bb) * hkv + kvh) * dh + d] = sum / keys;
+  }
+}
+
+template <typename T>
+int launch_dead(const void* dout, void* dead_dv, void* dq, int b, int sq, int sk, int hq, int hkv,
+                int dh, int window, int keys, cudaStream_t st) {
+  if (dead_dv == nullptr || keys < sk) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dead<T><<<b * hkv, 128, 0, st>>>(static_cast<const T*>(dout), static_cast<float*>(dead_dv),
+                                             static_cast<T*>(dq), sq, keys, hq, hkv, dh, sk + window - 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -372,51 +436,81 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// ----- the backward on the tensor cores (see the file's head, (b) and (c)) -----
+// ----- the backward on the tensor cores: one pass (see the file's head) -----
 
-// A backward block is NWG warpgroups (each owning 64 rows of every product's M).
-// Shared memory of both backward kernels: two NWG * 64-row tiles (K and V, or Q and dO)
-// and a two-stage ring of two 64-row tiles (Q and dO, or K and V), then (dK/dV only)
-// two stages of the query block's lse and D, 64 float32 each.
-template <int DH, int NWG>
-struct BwdLayout {
-  static constexpr int kRows = NWG * 64, kThreads = NWG * 128;
-  static constexpr int kBigBytes = kRows * DH * 2;
-  static constexpr int kTileBytes = kBN * DH * 2;
-  static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kStatsOff = 2 * kBigBytes + 2 * kStageBytes;
-  static constexpr int kSmemBytes = kStatsOff + 2 * 2 * kBN * 4 + 1024;  // + alignment slack
+constexpr int kKB = 128;               // keys a work item, 64 a consumer warpgroup
+constexpr int kQT = 64;                // query positions a step
+constexpr int kStages = 2;             // Q, dO, lse, D ring
+constexpr int kDqBufs = 2;             // dQ partials handed to the writer warps, one a buffer
+// setmaxnreg's budgets: the one pass's producer warpgroup holds the dQ writer warps as well
+// as the loader; the two kernels' holds the loader alone
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kMathRegs = 240, kLoaderRegs = 24;
+
+// Shared memory of the dK/dV pass, from a 1024-byte-aligned base: K and V of the item (128
+// rows each), the ring's Q and dO tiles (64 rows), with DQ (the one pass) two dS^T tiles
+// (128 keys x 64 queries, bf16) and the dQ partials' buffers (float32, both warpgroups'
+// fragments), the ring's lse and D (64 float32 each), then the mbarriers.
+template <int DH, bool DQ>
+struct Bwd {
+  static_assert(!DQ || DH == 64, "the one pass runs at head_dim 64 (it spills at 128)");
+  // two consumer warpgroups, then the producer's. The dK/dV pass at head_dim 128 has no
+  // producer: its thread 0 issues the TMA loads between steps, so that a block is 8 warps and
+  // ptxas may give a thread 255 registers. With a ninth warp a sub-partition of the SM holds
+  // three and ptxas gives each 168 whatever setmaxnreg asks (CUDA 12.9): dK, dV, S^T and dP^T,
+  // 192 float32 a thread, spill there (PERF.md)
+  static constexpr bool kProducerWarpgroup = DQ || DH == 64;
+  static constexpr int kThreads = kProducerWarpgroup ? 384 : 256;
+  static constexpr int kKvBytes = kKB * DH * 2;
+  static constexpr int kTileBytes = kQT * DH * 2;
+  static constexpr int kDsBytes = kKB * kQT * 2;
+  static constexpr int kDqFloats = 2 * 32 * 128;  // two warpgroups' m64n64 fragments
+  static constexpr int kDqBytes = kDqFloats * 4;
+  // a query tile's float32 dQ sum in global memory: one 64 x 64 fragment set (the two
+  // warpgroups' key halves added by the writer)
+  static constexpr int kAccFloats = 32 * 128;
+  static constexpr int kK = 0, kV = kKvBytes, kRing = 2 * kKvBytes;
+  static constexpr int kDs = kRing + kStages * 2 * kTileBytes;
+  static constexpr int kDq = kDs + (DQ ? 2 * kDsBytes : 0);
+  static constexpr int kStats = kDq + (DQ ? kDqBufs * kDqBytes : 0);
+  static constexpr int kBars = kStats + kStages * 2 * kQT * 4;
+  // kv_full, kv_empty, full[kStages], empty[kStages], dq_full[kDqBufs], dq_empty[kDqBufs]
+  static constexpr int kNumBars = 2 + 2 * kStages + 2 * kDqBufs;
+  static constexpr int kSmemBytes = kBars + kNumBars * 8 + 1024;  // + alignment slack
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
-// The float32 accumulators of a warpgroup's 64 rows x DH, in bf16, into the ROWS-row
-// swizzled tile at `tile` (its rows wgi * 64 ..), for a coalesced write-out.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_out(uint8_t* tile, const float (&acc)[DH / 64][32], int wgi,
-                                          int warp, int lane) {
-#pragma unroll
-  for (int n = 0; n < DH / 64; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = wgi * 64 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-      const int c = 8 * (i / 4) + 2 * (lane % 4);
-      *reinterpret_cast<uint32_t*>(tile + swz(r, n * 8 + c / 8, ROWS) + (c % 8) * 2) =
-          pack_bf16(acc[n][i], acc[n][i + 1]);
-    }
+// D[64x64] += A[64x16] B[16x64], A K-major and B MN-major (its transpose bit) in shared
+// memory.
+__device__ __forceinline__ void wgmma_st(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// Rows [row0, row0 + ROWS) of a ROWS-row swizzled tile out to a [*, DH] matrix whose rows
-// are `stride` elements apart, by NT threads; rows at or past `nrows` are not written.
-template <int DH, int ROWS, int NT>
-__device__ __forceinline__ void write_rows(__nv_bfloat16* dst, int64_t stride, const uint8_t* tile,
-                                           int row0, int nrows, int tid) {
-  constexpr int kChunks = DH / 8;
-  for (int i = tid; i < ROWS * kChunks; i += NT) {
-    const int r = i / kChunks, c = i % kChunks;
-    if (row0 + r < nrows) {
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz(r, c, ROWS));
-    }
-  }
+// D[64x64] (+)= A[64x16] B[16x64], both MN-major in shared memory (the transpose bits).
+__device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // S (+)= A B^T over DH for a warpgroup's 64 rows: A rows wgi * 64 .. of a ROWS-row tile,
@@ -427,20 +521,42 @@ __device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a_s, uint32
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss(d, desc(a_s + (kk / 4) * ROWS * 128 + wgi * 64 * 128 + off, 16, 1024),
-             desc(b_s + (kk / 4) * kBN * 128 + off, 16, 1024), kk > 0);
+             desc(b_s + (kk / 4) * kQT * 128 + off, 16, 1024), kk > 0);
   }
 }
 
-// D[n] += A B over 64 rows of a 64-row tile B (MN-major, the transpose bit: the forward's
-// O += P V), A from registers, for every 64-column block n of DH.
+// D[n] += A B over the 64 rows of a 64-row tile B (MN-major, the transpose bit: the
+// forward's O += P V), A from registers, for every 64-column block n of DH.
 template <int DH>
 __device__ __forceinline__ void product_rb(float (&d)[DH / 64][32], const uint32_t (&a)[4][4],
                                            uint32_t b_s) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
+  for (int kk = 0; kk < kQT / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < DH / 64; ++n)
-      wgmma_rs(d[n], a[kk], desc(b_s + n * kBN * 128 + kk * 16 * 128, kBN * 128, 1024));
+      wgmma_rs(d[n], a[kk], desc(b_s + n * kQT * 128 + kk * 16 * 128, kQT * 128, 1024));
+}
+
+// dK[n] += dS^T Q for a warpgroup's 64 keys: dS^T rows wgi * 64 .. of the dS^T tile (K-major:
+// queries contiguous), Q a 64-row tile read MN-major, for every 64-column block n of DH.
+template <int DH>
+__device__ __forceinline__ void product_sq(float (&d)[DH / 64][32], uint32_t ds_s, uint32_t q_s,
+                                           int wgi) {
+#pragma unroll
+  for (int kk = 0; kk < kQT / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < DH / 64; ++n)
+      wgmma_st(d[n], desc(ds_s + wgi * 64 * 128 + kk * 32, 16, 1024),
+               desc(q_s + n * kQT * 128 + kk * 16 * 128, kQT * 128, 1024));
+}
+
+// dQ partial = dS K over the 64 keys from key row0 of the item (head_dim 64): dS from the dS^T
+// tile (keys as rows, MN-major) and K (MN-major).
+__device__ __forceinline__ void product_dq(float (&d)[32], uint32_t ds_s, uint32_t k_s, int row0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tt(d, desc(ds_s + (row0 + kk * 16) * 128, kKB * 128, 1024),
+             desc(k_s + (row0 + kk * 16) * 128, kKB * 128, 1024), kk > 0);
 }
 
 // Accumulator pairs (2j, 2j + 1) of k-slice kk as the A fragments of the next product.
@@ -451,244 +567,559 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]
     for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
 }
 
-// (b) dK and dV of keys [k0, k0 + NWG * 64) of KV head blockIdx.y, batch blockIdx.z:
-// each warpgroup owns 64 keys (the M rows of every product); the query blocks of the G
-// heads stream through the ring. S^T = K Q^T and dP^T = V dO^T come out with keys as
-// rows and queries as columns, the layout of the A operand of dV += P^T dO and
-// dK += dS^T Q.
-template <int DH, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 2 / NWG)
-flash_bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                     int hq, int hkv, float scale, int causal, int window) {
-  using L = BwdLayout<DH, NWG>;
-  constexpr int kNB = DH / 64, kRows = L::kRows, kNT = L::kThreads;
+// The block's items. The one pass (DQ) walks its row of the work list
+// (kernels/flash_attention.py:backward_schedule) and reads each key block's reach from it;
+// the dK/dV pass, whose items never wait, takes one item a block, blockIdx.x with the key
+// block outermost (under a causal mask the first key blocks reach the most query tiles, so
+// the longest items start first), and reaches the query tiles of backward_plan's bands.
+template <bool DQ>
+struct Walk {
+  const int* reach_lo = nullptr;  // [nkb]: each key block's first query tile
+  const int* reach_hi = nullptr;  // [nkb]: ... and one past its last
+  const int* row = nullptr;       // this block's count, then its items
+  const int* offsets = nullptr;   // [items]: where each item's turns start
+  const int* turns = nullptr;
+  int nkb, nqt, groups, n_items, sk, causal, window;
+  __device__ Walk(const int* s, int b, int hkv, int sq, int sk_, int causal_, int window_)
+      : nkb((sk_ + kKB - 1) / kKB), nqt((sq + kQT - 1) / kQT), groups(b * hkv), n_items(1),
+        sk(sk_), causal(causal_), window(window_) {
+    if constexpr (DQ) {
+      const int blocks = s[0], width = s[1];
+      reach_lo = s + 4;
+      reach_hi = reach_lo + nkb;
+      row = reach_hi + nkb + blockIdx.x * (width + 1);
+      offsets = reach_hi + nkb + blocks * (width + 1);
+      turns = offsets + groups * nkb;
+      n_items = row[0];
+    }
+  }
+  // the block's item it: (batch * Hkv + KV head) * nkb + key block
+  __device__ int item(int it) const {
+    if constexpr (DQ) return row[1 + it];
+    const int m = static_cast<int>(blockIdx.x) / groups;
+    return static_cast<int>(blockIdx.x) % groups * nkb + m;
+  }
+  __device__ int lo(int m) const {
+    if constexpr (DQ) return reach_lo[m];
+    return causal ? min(m * kKB / kQT, nqt) : 0;
+  }
+  __device__ int hi(int m) const {
+    if constexpr (DQ) return reach_hi[m];
+    if (window <= 0) return nqt;
+    const int kl = min(sk, (m + 1) * kKB) - 1;
+    return max(lo(m), min(nqt, (kl + window - 1) / kQT + 1));
+  }
+};
+
+// The backward of bf16 attention at head_dim DH over items of (key block of 128 keys, KV
+// head, batch row): with DQ the one pass (dK, dV and the ordered dQ sums, the blocks walking
+// their rows of the work list), without it the dK/dV pass of the two-kernel route.
+template <int DH, bool DQ>
+__global__ void __launch_bounds__(Bwd<DH, DQ>::kThreads, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                const float* __restrict__ ws, const int* __restrict__ sched,
+                float* __restrict__ acc, int* __restrict__ flags,
+                const float* __restrict__ dead_dv, int b, int sq, int sk, int hq, int hkv, int sqp,
+                float scale, int causal, int window) {
+  using L = Bwd<DH, DQ>;
+  constexpr int kNB = DH / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t k_s = base, v_s = base + L::kBigBytes;
-  const uint32_t ring = base + 2 * L::kBigBytes;  // stage st: Q at ring + st * stage, dO a tile on
-  float* stats = reinterpret_cast<float*>(smem + L::kStatsOff);  // stage st: lse, then D
+  const uint32_t k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t bars = base + L::kBars;
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int st) { return bars + 16 + 8 * st; };
+  auto empty = [&](int st) { return bars + 16 + 8 * kStages + 8 * st; };
+  auto dq_full = [&](int i) { return bars + 16 + 16 * kStages + 8 * i; };
+  auto dq_empty = [&](int i) { return bars + 16 + 16 * kStages + 8 * kDqBufs + 8 * i; };
+  auto q_tile = [&](int st) { return base + L::kRing + st * 2 * L::kTileBytes; };
+  auto stats = [&](int st) { return reinterpret_cast<const float*>(smem + L::kStats) + st * 2 * kQT; };
 
-  const int tid = threadIdx.x, lane = tid % 32, wgi = tid / 128, warp = (tid % 128) / 32;
-  const int k0 = blockIdx.x * kRows, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = hq / hkv;
-  const int64_t q_stride = static_cast<int64_t>(hq) * DH, kv_stride = static_cast<int64_t>(hkv) * DH;
-  const __nv_bfloat16* kg = k + (static_cast<int64_t>(b) * sk * hkv + kvh) * DH;
-  const __nv_bfloat16* vg = v + (static_cast<int64_t>(b) * sk * hkv + kvh) * DH;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 256);
+    }
+    for (int i = 0; i < kDqBufs; ++i) {
+      mbar_init(dq_full(i), 256);
+      mbar_init(dq_empty(i), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // the query blocks that can reach keys k0 .. k0 + kRows - 1, for each of the G heads
-  const int n_qt = (sq + kBN - 1) / kBN;
-  const int qt_begin = causal ? min(k0 / kBN, n_qt) : 0;
-  const int qt_end = window > 0 ? min(n_qt, (k0 + kRows - 1 + window - 1) / kBN + 1) : n_qt;
-  const int per_head = max(0, qt_end - qt_begin);
-  const int n_it = g * per_head;
-
-  auto load_stage = [&](int st, int it) {
-    const int h = kvh * g + it / per_head, q0 = (qt_begin + it % per_head) * kBN;
-    const int64_t off = static_cast<int64_t>(b) * sq * hq * DH + static_cast<int64_t>(h) * DH;
-    const uint32_t q_s = ring + st * L::kStageBytes;
-    load_tile<DH, kBN, kNT>(q_s, q + off, q_stride, q0, sq, tid);
-    load_tile<DH, kBN, kNT>(q_s + L::kTileBytes, dout + off, q_stride, q0, sq, tid);
-    if (tid < 2 * kBN) {
-      const int row = q0 + tid % kBN;
-      const float* src = (tid < kBN ? lse : delta) + (static_cast<int64_t>(b) * hq + h) * sq;
-      const float x = row < sq ? src[row] : 0.f;
-      stats[st * 2 * kBN + tid] = tid < kBN ? lse_base2(x) : x;
+  // The block's work (made by each role after its setmaxnreg: nothing but the parameters and
+  // the shared-memory base is live across it). An item's steps are the query tiles of its
+  // reach, each for the G heads in turn.
+  auto items = [&](const Walk<DQ>& sc, int it, int& bi, int& kvh, int& m) {
+    const int item = sc.item(it);
+    m = item % sc.nkb;
+    bi = item / sc.nkb / hkv;
+    kvh = item / sc.nkb % hkv;
+    return item;
+  };
+  // K and V of key block m (KV head kvh, batch row bi) onto kv_full
+  auto load_kv = [&](int bi, int kvh, int m) {
+    mbar_expect_tx(kv_full, 2 * L::kKvBytes);
+#pragma unroll
+    for (int cb = 0; cb < kNB; ++cb) {
+      tma_load_4d(k_s + cb * kKB * 128, &tm_k, kv_full, cb * 64, kvh, m * kKB, bi);
+      tma_load_4d(v_s + cb * kKB * 128, &tm_v, kv_full, cb * 64, kvh, m * kKB, bi);
     }
   };
-
-  load_tile<DH, kRows, kNT>(k_s, kg, kv_stride, k0, sk, tid);
-  load_tile<DH, kRows, kNT>(v_s, vg, kv_stride, k0, sk, tid);
-  if (n_it > 0) load_stage(0, 0);
-  cp_async_commit();
-
-  const int wg_first = k0 + wgi * 64, wg_last = wg_first + 63;
-  const int key0 = wg_first + warp * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
-  const float scale2 = scale * kLog2e;
-  float dk_acc[kNB][32], dv_acc[kNB][32];
+  // Q, dO, the base-2 lse and D of query tile t, head h, batch row bi into ring stage st
+  auto load_step = [&](int bi, int h, int t, int st) {
+    mbar_expect_tx(full(st), 2 * L::kTileBytes + 2 * kQT * 4);
 #pragma unroll
-  for (int n = 0; n < kNB; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+    for (int cb = 0; cb < kNB; ++cb) {
+      tma_load_4d(q_tile(st) + cb * kQT * 128, &tm_q, full(st), cb * 64, h, t * kQT, bi);
+      tma_load_4d(q_tile(st) + L::kTileBytes + cb * kQT * 128, &tm_do, full(st), cb * 64, h, t * kQT, bi);
+    }
+    const int64_t row = (static_cast<int64_t>(bi) * hq + h) * sqp + t * kQT;
+    const uint32_t st_s = base + L::kStats + st * 2 * kQT * 4;
+    bulk_load(st_s, ws + row, kQT * 4, full(st));
+    bulk_load(st_s + kQT * 4, ws + static_cast<int64_t>(b) * hq * sqp + row, kQT * 4, full(st));
+  };
+  // A dQ partial (at shared src) into its tile's float32 sum in the tile's turn: the first
+  // writer stores, the others add once the tile's flag counts them; returns once issued.
+  auto add_partial = [&](int64_t tile, int turn, uint32_t src) {
+    float* dst = acc + tile * L::kAccFloats;
+    if (turn == 0) {
+      bulk_store(dst, src, L::kAccFloats * 4);
+    } else {
+      wait_flag(flags + tile, turn);
+      fence_proxy_async_global();
+      bulk_add_f32(dst, src, L::kAccFloats * 4);
+    }
+    bulk_commit();
+  };
+  // once an add's writes are done (bulk_wait_all): the next writer's turn
+  auto publish = [&](int64_t tile, int turn) {
+    fence_proxy_async_global();
+    st_release(flags + tile, turn + 1);
+  };
 
-  for (int it = 0; it < n_it; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_it) load_stage(st ^ 1, it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // stage it (and K, V) have landed
-    fence_proxy_async();
-    __syncthreads();
-
-    const int qf = (qt_begin + it % per_head) * kBN, ql = qf + kBN - 1;
-    // skip a block pair that every (key, query) of this warpgroup masks (warpgroup-uniform)
-    const bool skip = wg_first >= sk || (causal && ql < wg_first) ||
-                      (window > 0 && qf - wg_last >= window);
-    if (!skip) {
-      const uint32_t q_s = ring + st * L::kStageBytes, do_s = q_s + L::kTileBytes;
-      const float* lse2 = stats + st * 2 * kBN;
-      const float* dd = lse2 + kBN;
-      float s[32], dp[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-      fence_regs(s);
-      fence_regs(dp);
-      // four wgmma groups, each waited for only where its result is read: P^T is
-      // computed while dP^T multiplies, dS^T while dV does
-      wgmma_fence();
-      product_abt<DH, kRows>(s, k_s, q_s, wgi);    // S^T = K Q^T
-      wgmma_commit();
-      product_abt<DH, kRows>(dp, v_s, do_s, wgi);  // dP^T = V dO^T
-      wgmma_commit();
-      wgmma_wait<1>();  // S^T has landed
-      fence_regs(s);
-
-      const bool need_mask = (causal && wg_last > qf) || (window > 0 && ql - wg_first >= window) ||
-                             wg_last >= sk || ql >= sq;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);  // query qf + col
-        float p = exp2f(s[i] * scale2 - lse2[col]);
-        if (need_mask) {
-          const int kpos = key0 + 8 * ((i / 2) % 2), qpos = qf + col;
-          bool ok = kpos < sk && qpos < sq;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && qpos - kpos < window;
-          p = ok ? p : 0.f;
+  if (tid >= 256) {  // ---------------- producer warpgroup ----------------
+    if constexpr (L::kProducerWarpgroup) setmaxnreg_dec<DQ ? kProducerRegs : kLoaderRegs>();
+    const int g = hq / hkv;
+    const Walk<DQ> sc(sched, b, hkv, sq, sk, causal, window);
+    const int n_items = sc.n_items;
+    const int warp = (tid - 256) / 32, lane = tid % 32;
+    if (warp == 0 && lane == 0) {
+      // the loader: an item's first ring stages, then its K and V (once the last item's
+      // epilogue has stored dK and dV from their tiles), then the ring a step
+      int st = 0, ph = 0;
+      for (int it = 0; it < n_items; ++it) {
+        int bi, kvh, m;
+        items(sc, it, bi, kvh, m);
+        const int t0 = sc.lo(m), n_steps = (sc.hi(m) - t0) * g;
+        if (n_steps == 0) {
+          mbar_wait(kv_empty, (it & 1) ^ 1);
+          load_kv(bi, kvh, m);
         }
-        s[i] = p;
+        for (int j = 0; j < n_steps; ++j) {
+          mbar_wait(empty(st), ph ^ 1);
+          load_step(bi, kvh * g + j % g, t0 + j / g, st);
+          if (++st == kStages) {
+            st = 0;
+            ph ^= 1;
+          }
+          if (j + 1 == min(kStages, n_steps)) {
+            mbar_wait(kv_empty, (it & 1) ^ 1);
+            load_kv(bi, kvh, m);
+          }
+        }
       }
-      uint32_t pa[4][4], da[4][4];
-      pack_a(pa, s);
-#pragma unroll
-      for (int n = 0; n < kNB; ++n) fence_regs(dv_acc[n]);
-      wgmma_fence();
-      product_rb<DH>(dv_acc, pa, do_s);  // dV += P^T dO
-      wgmma_commit();
-      wgmma_wait<1>();  // dP^T has landed
-      fence_regs(dp);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-        dp[i] = s[i] * (dp[i] - dd[col]) * scale;
-      }
-      pack_a(da, dp);
-#pragma unroll
-      for (int n = 0; n < kNB; ++n) fence_regs(dk_acc[n]);
-      wgmma_fence();
-      product_rb<DH>(dk_acc, da, q_s);   // dK += dS^T Q
-      wgmma_commit();
-      wgmma_wait0();
-#pragma unroll
-      for (int n = 0; n < kNB; ++n) {
-        fence_regs(dk_acc[n]);
-        fence_regs(dv_acc[n]);
+    } else if (DQ && warp >= 1 && warp <= kDqBufs) {
+      // the dQ writers: writer w takes the steps of buffer w - 1 (every other step), adds
+      // each partial to its tile's float32 sum in the tile's turn, and frees the buffer once
+      // the add has read it (one writer a buffer: a writer never waits on a buffer's barrier
+      // a phase ahead of the last it saw end)
+      int n = 0;  // steps so far
+      for (int it = 0; it < n_items; ++it) {
+        int bi, kvh, m;
+        const int item = items(sc, it, bi, kvh, m);
+        for (int t = sc.lo(m); t < sc.hi(m); ++t) {
+          const int turn = sc.turns[sc.offsets[item] + t - sc.lo(m)];
+          for (int gi = 0; gi < g; ++gi, ++n) {
+            const int slot = n % kDqBufs;
+            if (slot != warp - 1) continue;
+            mbar_wait(dq_full(slot), (n / kDqBufs) & 1);
+            {  // the second warpgroup's key half onto the first's
+              float4* p0 = reinterpret_cast<float4*>(smem + L::kDq + slot * L::kDqBytes);
+              const float4* p1 = p0 + L::kDqFloats / 8;
+              for (int i = lane; i < L::kDqFloats / 8; i += 32) {
+                const float4 x = p0[i], y = p1[i];
+                p0[i] = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+              }
+              fence_proxy_async();
+              __syncwarp();
+            }
+            if (lane == 0) {  // the add; its buffer is free once read; then published
+              const int64_t tile = (static_cast<int64_t>(bi) * hq + kvh * g + gi) * sc.nqt + t;
+              add_partial(tile, turn, base + L::kDq + slot * L::kDqBytes);
+              bulk_wait_read_all();
+              mbar_arrive(dq_empty(slot));
+              bulk_wait_all();
+              publish(tile, turn);
+            }
+            __syncwarp();
+          }
+        }
       }
     }
-    __syncthreads();  // every warpgroup is done with stage st before it is refilled
+    return;
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  if constexpr (L::kProducerWarpgroup) setmaxnreg_inc<DQ ? kConsumerRegs : kMathRegs>();
 
-  // epilogue: dK into the K tile's space, dV into V's, then 16-byte rows out
-  stage_out<DH, kRows>(smem, dk_acc, wgi, warp, lane);
-  stage_out<DH, kRows>(smem + L::kBigBytes, dv_acc, wgi, warp, lane);
-  __syncthreads();
-  const int64_t off = (static_cast<int64_t>(b) * sk * hkv + kvh) * DH;
-  write_rows<DH, kRows, kNT>(dk + off, kv_stride, smem, k0, sk, tid);
-  write_rows<DH, kRows, kNT>(dv + off, kv_stride, smem + L::kBigBytes, k0, sk, tid);
+  // ---------------- consumers: two warpgroups of 64 keys each ----------------
+  const int g = hq / hkv;
+  const Walk<DQ> sc(sched, b, hkv, sq, sk, causal, window);
+  const int n_items = sc.n_items;
+  const int lane = tid % 32, wgi = tid / 128, warp = (tid % 128) / 32, wtid = tid % 128;
+  const float scale2 = scale * kLog2e;
+  int st = 0, ph = 0, step = 0;
+  for (int it = 0; it < n_items; ++it) {
+    int bi, kvh, m;
+    items(sc, it, bi, kvh, m);
+    const int k0 = m * kKB, wg_first = k0 + wgi * 64, wg_last = wg_first + 63;
+    const int key0 = wg_first + warp * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
+    float dk_acc[kNB][32], dv_acc[kNB][32];
+#pragma unroll
+    for (int n = 0; n < kNB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+    const int t_begin = sc.lo(m), t_end = sc.hi(m), n_steps = (t_end - t_begin) * g;
+    if constexpr (!L::kProducerWarpgroup) {  // no producer (one item a block): K, V and the
+      if (tid == 0) {                        // ring's first stages from thread 0
+        for (int j = 0; j < min(kStages, n_steps); ++j) load_step(bi, kvh * g + j % g, t_begin + j / g, j);
+        load_kv(bi, kvh, m);
+      }
+      __syncwarp();
+    }
+    mbar_wait(kv_full, it & 1);
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int qf = t * kQT, ql = qf + kQT - 1;
+      const bool need_mask = (causal && wg_last > qf) || (window > 0 && ql - wg_first >= window) ||
+                             wg_last >= sk || ql >= sq;
+      for (int gi = 0; gi < g; ++gi, ++step) {
+        if constexpr (!L::kProducerWarpgroup) {
+          // thread 0 refills the stage of the step before this one, once both warpgroups have
+          // freed it, with the step kStages after that one
+          const int jn = step - 1 + kStages;
+          if (tid == 0 && step >= 1 && jn < n_steps) {
+            mbar_wait(empty((step - 1) % kStages), ((step - 1) / kStages) & 1);
+            load_step(bi, kvh * g + jn % g, t_begin + jn / g, (step - 1) % kStages);
+          }
+          __syncwarp();
+        }
+        mbar_wait(full(st), ph);
+        const uint32_t q_s = q_tile(st), do_s = q_s + L::kTileBytes;
+        const float* lse2 = stats(st);
+        const float* dd = lse2 + kQT;
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        fence_regs(s);
+        fence_regs(dp);
+        uint32_t ka = k_s, va = v_s;  // opaque: no descriptor is held in registers across steps
+        asm volatile("" : "+r"(ka), "+r"(va));
+        wgmma_fence();
+        product_abt<DH, kKB>(s, ka, q_s, wgi);    // S^T = K Q^T
+        wgmma_commit();
+        product_abt<DH, kKB>(dp, va, do_s, wgi);  // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T has landed; P^T is computed while dP^T multiplies
+        fence_regs(s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);  // query qf + col
+          float p = exp2f(s[i] * scale2 - lse2[col]);
+          if (need_mask) {
+            const int kpos = key0 + 8 * ((i / 2) % 2), qpos = qf + col;
+            bool ok = kpos < sk && qpos < sq;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && qpos - kpos < window;
+            p = ok ? p : 0.f;
+          }
+          s[i] = p;
+        }
+        wgmma_wait0();  // dP^T has landed
+        fence_regs(dp);
+        if constexpr (!DQ) {
+          // dS^T = P^T (dP^T - D) scale; P^T and dS^T as the bf16 A fragments of dV and dK
+          // (S^T and dP^T die before either product is issued)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+            dp[i] = s[i] * (dp[i] - dd[col]) * scale;
+          }
+          uint32_t pa[4][4], da[4][4];
+          pack_a(pa, s);
+          pack_a(da, dp);
+#pragma unroll
+          for (int n = 0; n < kNB; ++n) {
+            fence_regs(dv_acc[n]);
+            fence_regs(dk_acc[n]);
+          }
+          wgmma_fence();
+          product_rb<DH>(dv_acc, pa, do_s);  // dV += P^T dO
+          product_rb<DH>(dk_acc, da, q_s);   // dK += dS^T Q (Q read MN-major)
+          wgmma_commit();
+          wgmma_wait0();
+          mbar_arrive(empty(st));  // the stage is free
+          if (++st == kStages) {
+            st = 0;
+            ph ^= 1;
+          }
+        } else {
+          // dS^T = P^T (dP^T - D) scale, as bf16 into the dS^T tile (the A operand of dK and
+          // dQ) straight from its registers; then P^T as the bf16 A fragments of dV: S^T and
+          // dP^T die before any product is issued
+          uint8_t* ds_tile = smem + L::kDs + (step & 1) * L::kDsBytes;
+          {  // pair (i, i + 1) sits at row wgi * 64 + warp * 16 + lane / 4 + 8 ((i / 2) % 2),
+             // columns 8 (i / 4) + 2 (lane % 4) ..: chunk i / 4, swizzled by lane / 4
+            int ln = lane, row0 = wgi * 64 + warp * 16;
+            asm volatile("" : "+r"(ln), "+r"(row0));
+            const int x = ln / 4;
+            uint8_t* ds_row = ds_tile + (row0 + x) * 128 + (ln % 4) * 4;
+#pragma unroll
+            for (int i = 0; i < 32; i += 2) {
+              const int col = 8 * (i / 4) + 2 * (lane % 4);
+              const float d0 = s[i] * (dp[i] - dd[col]) * scale;
+              const float d1 = s[i + 1] * (dp[i + 1] - dd[col + 1]) * scale;
+              *reinterpret_cast<uint32_t*>(ds_row + ((i / 2) % 2) * 8 * 128 + (((i / 4) ^ x) << 4)) =
+                  pack_bf16(d0, d1);
+            }
+          }
+          uint32_t pa[4][4];
+          pack_a(pa, s);
+#pragma unroll
+          for (int n = 0; n < kNB; ++n) fence_regs(dv_acc[n]);
+          wgmma_fence();
+          product_rb<DH>(dv_acc, pa, do_s);  // dV += P^T dO
+          wgmma_commit();
+          fence_proxy_async();
+          named_barrier(2 + wgi, 128);  // the warpgroup's rows of dS^T are in the tile
+          const uint32_t ds_s = base + L::kDs + (step & 1) * L::kDsBytes;
+#pragma unroll
+          for (int n = 0; n < kNB; ++n) fence_regs(dk_acc[n]);
+          wgmma_fence();
+          product_sq<DH>(dk_acc, ds_s, q_s, wgi);  // dK += dS^T Q
+          wgmma_commit();
+          float dqp[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dqp[i] = 0.f;
+          fence_regs(dqp);
+          wgmma_fence();
+          product_dq(dqp, ds_s, k_s, wgi * 64);  // the dQ partial over its own 64 keys
+          wgmma_commit();
+          wgmma_wait<1>();  // dV and dK are done (dQ may be in flight): the stage is free
+          mbar_arrive(empty(st));
+          if (++st == kStages) {
+            st = 0;
+            ph ^= 1;
+          }
+          // to the buffer's writer warp, fragment-major: element i of thread w of warpgroup p
+          // (keys p * 64 ..) at (p * 32 + i) * 128 + w
+          const int slot = step % kDqBufs;
+          mbar_wait(dq_empty(slot), ((step / kDqBufs) & 1) ^ 1);
+          wgmma_wait0();
+          fence_regs(dqp);
+          float* buf = reinterpret_cast<float*>(smem + L::kDq + slot * L::kDqBytes) + wgi * 32 * 128 + wtid;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) buf[i * 128] = dqp[i];
+          fence_proxy_async();
+          mbar_arrive(dq_full(slot));
+        }
+#pragma unroll
+        for (int n = 0; n < kNB; ++n) {
+          fence_regs(dk_acc[n]);
+          fence_regs(dv_acc[n]);
+        }
+      }
+    }
+
+    // epilogue: dK, and dV plus dO / n of the rows that allow no key, as bf16 into the K and
+    // V tiles (their swizzle), once both warpgroups' last products have read them; then a
+    // TMA store of each, whose reads end before the next item's K and V may land
+    named_barrier(1, 256);
+    const float* dead = dead_dv != nullptr ? dead_dv + (static_cast<int64_t>(bi) * hkv + kvh) * DH : nullptr;
+    // this thread's rows r = row0 + ln / 4 (+ 8) all have r % 8 = ln / 4, so each pair's
+    // swizzled address is a row base plus constants (made here, not hoisted out of the steps)
+    int ln = lane, row0 = wgi * 64 + warp * 16;
+    asm volatile("" : "+r"(ln), "+r"(row0));
+    const int x = ln / 4;
+    uint8_t* k_row = smem + L::kK + (row0 + x) * 128 + (ln % 4) * 4;
+    const float* dead_c = dead != nullptr ? dead + 2 * (ln % 4) : nullptr;
+#pragma unroll
+    for (int n = 0; n < kNB; ++n)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * q + 2 * hh;
+          const int at = n * kKB * 128 + hh * 8 * 128 + ((q ^ x) << 4);
+          const float v0 = dv_acc[n][i] + (dead_c != nullptr ? dead_c[n * 64 + 8 * q] : 0.f);
+          const float v1 = dv_acc[n][i + 1] + (dead_c != nullptr ? dead_c[n * 64 + 8 * q + 1] : 0.f);
+          *reinterpret_cast<uint32_t*>(k_row + at) = pack_bf16(dk_acc[n][i], dk_acc[n][i + 1]);
+          *reinterpret_cast<uint32_t*>(k_row + (L::kV - L::kK) + at) = pack_bf16(v0, v1);
+        }
+    fence_proxy_async();
+    named_barrier(1, 256);
+    if (tid == 0) {
+#pragma unroll
+      for (int cb = 0; cb < kNB; ++cb) {
+        tma_store_4d(&tm_dk, k_s + cb * kKB * 128, cb * 64, kvh, k0, bi);
+        tma_store_4d(&tm_dv, v_s + cb * kKB * 128, cb * 64, kvh, k0, bi);
+      }
+      bulk_commit();
+      bulk_wait_read_all();
+      mbar_arrive(kv_empty);
+    }
+  }
+  if (tid == 0) bulk_wait_all();
 }
 
-// (c) dQ of query positions q0 .. q0 + NWG * 64 - 1 of head blockIdx.x, batch blockIdx.z
-// (the last positions' blocks first, as the forward): each warpgroup owns 64 of them; K
-// and V tiles of 64 keys stream through the ring.
-template <int DH, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 2 / NWG)
-flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int sq, int sk, int hq, int hkv, float scale,
-                   int causal, int window) {
-  using L = BwdLayout<DH, NWG>;
-  constexpr int kNB = DH / 64, kRows = L::kRows, kNT = L::kThreads;
+// The dQ pass of the two-kernel route: dQ of 64 query positions of one head and batch row
+// (one item a block, the last positions first: under a causal mask they reach the most keys).
+// The producer warp TMA-loads the block's Q and dO (and their base-2 lse and D) once and
+// streams the 64-key K and V tiles its mask reaches through a ring on mbarrier full/empty
+// pairs. The two consumer warpgroups take alternate key tiles (each its own two stages of
+// the ring); a step recomputes S = Q K^T and dP = dO V^T, then dQ += dS K with dS from
+// registers. At the end the second warpgroup's dQ is added to the first's through shared
+// memory: a fixed order, so a run repeats bitwise. (128-position blocks, a warpgroup each
+// half, were as fast at granite's shape and 1.4x slower at whisper's cross attention, whose
+// grid they leave at 32 blocks: PERF.md.)
+template <int DH>
+struct BwdDq {
+  static constexpr int kThreads = 384;
+  static constexpr int kRows = 64;
+  static constexpr int kRing = 4;  // two stages a warpgroup
+  static constexpr int kBigBytes = kRows * DH * 2;   // Q or dO
+  static constexpr int kTileBytes = kQT * DH * 2;    // one K or V tile
+  static constexpr int kQ = 0, kDo = kBigBytes, kRingOff = 2 * kBigBytes;
+  static constexpr int kStats = kRingOff + kRing * 2 * kTileBytes;
+  static constexpr int kBars = kStats + 2 * kRows * 4;
+  static constexpr int kNumBars = 1 + 2 * kRing;  // qo_full, full[kRing], empty[kRing]
+  static constexpr int kSmemBytes = kBars + kNumBars * 8 + 1024;
+  static_assert(kRing * 2 * kTileBytes >= 64 * DH * 4, "the ring holds a dQ block");
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(BwdDq<DH>::kThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ ws, int b,
+                   int sq, int sk, int hq, int hkv, int sqp, float scale, int causal, int window) {
+  using L = BwdDq<DH>;
+  constexpr int kNB = DH / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t q_s = base, do_s = base + L::kBigBytes;
-  const uint32_t ring = base + 2 * L::kBigBytes;  // stage st: K at ring + st * stage, V a tile on
+  const uint32_t q_s = base + L::kQ, do_s = base + L::kDo;
+  const uint32_t bars = base + L::kBars, qo_full = bars;
+  auto full = [&](int st) { return bars + 8 + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 + 8 * L::kRing + 8 * st; };
+  auto k_tile = [&](int st) { return base + L::kRingOff + st * 2 * L::kTileBytes; };
 
-  const int tid = threadIdx.x, lane = tid % 32, wgi = tid / 128, warp = (tid % 128) / 32;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows, h = blockIdx.x, b = blockIdx.z;
-  const int kvh = h / (hq / hkv);
-  const int64_t q_stride = static_cast<int64_t>(hq) * DH, kv_stride = static_cast<int64_t>(hkv) * DH;
-  const int64_t q_off = static_cast<int64_t>(b) * sq * hq * DH + static_cast<int64_t>(h) * DH;
-  const __nv_bfloat16* kg = k + (static_cast<int64_t>(b) * sk * hkv + kvh) * DH;
-  const __nv_bfloat16* vg = v + (static_cast<int64_t>(b) * sk * hkv + kvh) * DH;
-
-  const int t_begin = window > 0 ? max(0, q0 - window + 1) / kBN : 0;
-  int t_end = (sk + kBN - 1) / kBN;
-  if (causal) t_end = min(t_end, (q0 + kRows - 1) / kBN + 1);
-
-  load_tile<DH, kRows, kNT>(q_s, q + q_off, q_stride, q0, sq, tid);
-  load_tile<DH, kRows, kNT>(do_s, dout + q_off, q_stride, q0, sq, tid);
-  if (t_begin < t_end) {
-    load_tile<DH, kBN, kNT>(ring, kg, kv_stride, t_begin * kBN, sk, tid);
-    load_tile<DH, kBN, kNT>(ring + L::kTileBytes, vg, kv_stride, t_begin * kBN, sk, tid);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(qo_full, 1);
+    for (int i = 0; i < L::kRing; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 128);
+    }
+    mbar_fence_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int wg_first = q0 + wgi * 64, wg_last = wg_first + 63;
-  const int row0 = wg_first + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
-  const float scale2 = scale * kLog2e;
-  float lse2[2], dd[2];
+  // the item: query block qb (the last first), head h, batch row bi; its K/V tiles
+  const int groups = b * hq, nqb = (sq + L::kRows - 1) / L::kRows;
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x) / groups;
+  const int h = static_cast<int>(blockIdx.x) % groups % hq, bi = static_cast<int>(blockIdx.x) % groups / hq;
+  const int q0 = qb * L::kRows, kvh = h / (hq / hkv);
+  const int t_begin = window > 0 ? max(0, q0 - window + 1) / kQT : 0;
+  int t_end = (sk + kQT - 1) / kQT;
+  if (causal) t_end = min(t_end, (q0 + L::kRows - 1) / kQT + 1);
+
+  if (tid >= 256) {  // ---------------- producer warpgroup: one loader thread ----------------
+    setmaxnreg_dec<kLoaderRegs>();
+    if (tid == 256) {
+      mbar_expect_tx(qo_full, 2 * L::kBigBytes + 2 * L::kRows * 4);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const int64_t at = (static_cast<int64_t>(b) * hq + h) * sq + row;
-    lse2[r] = row < sq ? lse_base2(lse[at]) : INFINITY;  // rows past Sq: P = 0
-    dd[r] = row < sq ? delta[at] : 0.f;
+      for (int cb = 0; cb < kNB; ++cb) {
+        tma_load_4d(q_s + cb * L::kRows * 128, &tm_q, qo_full, cb * 64, h, q0, bi);
+        tma_load_4d(do_s + cb * L::kRows * 128, &tm_do, qo_full, cb * 64, h, q0, bi);
+      }
+      const int64_t row = (static_cast<int64_t>(bi) * hq + h) * sqp + q0;
+      bulk_load(base + L::kStats, ws + row, L::kRows * 4, qo_full);
+      bulk_load(base + L::kStats + L::kRows * 4, ws + static_cast<int64_t>(b) * hq * sqp + row,
+                L::kRows * 4, qo_full);
+      for (int t = t_begin; t < t_end; ++t) {
+        const int j = t - t_begin, st = j % L::kRing;
+        mbar_wait(empty(st), ((j / L::kRing) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * L::kTileBytes);
+#pragma unroll
+        for (int cb = 0; cb < kNB; ++cb) {
+          tma_load_4d(k_tile(st) + cb * kQT * 128, &tm_k, full(st), cb * 64, kvh, t * kQT, bi);
+          tma_load_4d(k_tile(st) + L::kTileBytes + cb * kQT * 128, &tm_v, full(st), cb * 64, kvh,
+                      t * kQT, bi);
+        }
+      }
+    }
+    return;
   }
+  setmaxnreg_inc<kMathRegs>();
+
+  // ---------------- consumers: two warpgroups, alternate key tiles ----------------
+  const int lane = tid % 32, wgi = tid / 128, warp = (tid % 128) / 32, wtid = tid % 128;
+  const int wg_first = q0, wg_last = q0 + 63;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows: rl, rl + 8 of the block
+  const int row0 = q0 + rl;
+  const float scale2 = scale * kLog2e;
+  mbar_wait(qo_full, 0);
+  const float* stat = reinterpret_cast<const float*>(smem + L::kStats);
+  const float lse2[2] = {stat[rl], stat[rl + 8]};
+  const float dd[2] = {stat[L::kRows + rl], stat[L::kRows + rl + 8]};
   float dq_acc[kNB][32];
 #pragma unroll
   for (int n = 0; n < kNB; ++n)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq_acc[n][i] = 0.f;
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int st = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      const uint32_t nxt = ring + (st ^ 1) * L::kStageBytes;
-      load_tile<DH, kBN, kNT>(nxt, kg, kv_stride, (t + 1) * kBN, sk, tid);
-      load_tile<DH, kBN, kNT>(nxt + L::kTileBytes, vg, kv_stride, (t + 1) * kBN, sk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile t (and Q, dO) have landed
-    fence_proxy_async();
-    __syncthreads();
-
-    const int k0 = t * kBN;
-    const bool skip = (causal && k0 > wg_last) || (window > 0 && wg_first - (k0 + kBN - 1) >= window);
+  for (int t = t_begin + wgi; t < t_end; t += 2) {
+    const int j = t - t_begin, st = j % L::kRing;
+    mbar_wait(full(st), (j / L::kRing) & 1);
+    const int k0 = t * kQT;
+    // a tile that every row of this warpgroup masks is skipped (warpgroup-uniform)
+    const bool skip = (causal && k0 > wg_last) || (window > 0 && wg_first - (k0 + kQT - 1) >= window);
     if (!skip) {
-      const uint32_t k_s = ring + st * L::kStageBytes, v_s = k_s + L::kTileBytes;
+      const uint32_t k_s = k_tile(st), v_s = k_s + L::kTileBytes;
       float s[32], dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
       fence_regs(s);
       fence_regs(dp);
       wgmma_fence();
-      product_abt<DH, kRows>(s, q_s, k_s, wgi);    // S = Q K^T
+      product_abt<DH, L::kRows>(s, q_s, k_s, 0);    // S = Q K^T
       wgmma_commit();
-      product_abt<DH, kRows>(dp, do_s, v_s, wgi);  // dP = dO V^T
+      product_abt<DH, L::kRows>(dp, do_s, v_s, 0);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait<1>();  // S has landed; P is computed while dP multiplies
       fence_regs(s);
-
-      const bool need_mask = (causal && k0 + kBN - 1 > wg_first) ||
-                             (window > 0 && wg_last - k0 >= window) || k0 + kBN > sk;
+      const bool need_mask = (causal && k0 + kQT - 1 > wg_first) ||
+                             (window > 0 && wg_last - k0 >= window) || k0 + kQT > sk;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i / 2) % 2;
@@ -717,41 +1148,286 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
       for (int n = 0; n < kNB; ++n) fence_regs(dq_acc[n]);
     }
-    __syncthreads();  // every warpgroup is done with stage st before it is refilled
+    mbar_arrive(empty(st));
   }
-  cp_async_wait<0>();
-  __syncthreads();
 
-  stage_out<DH, kRows>(smem, dq_acc, wgi, warp, lane);  // into the Q tile's space
-  __syncthreads();
-  write_rows<DH, kRows, kNT>(dq + q_off, q_stride, smem, q0, sq, tid);
+  // epilogue: the second warpgroup's dQ onto the first's through the ring's space, once every
+  // product has read the ring; then dQ as bf16 into the Q tile (its swizzle) and a TMA store
+  // (rows past Sq are not written)
+  named_barrier(1, 256);
+  float* part = reinterpret_cast<float*>(smem + L::kRingOff) + wtid;
+  if (wgi == 1) {
+#pragma unroll
+    for (int n = 0; n < kNB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[(n * 32 + i) * 128] = dq_acc[n][i];
+  }
+  named_barrier(1, 256);
+  if (wgi == 1) return;
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[n][i] += part[(n * 32 + i) * 128];
+  int ln = lane, rb = warp * 16;
+  asm volatile("" : "+r"(ln), "+r"(rb));
+  const int x = ln / 4;
+  uint8_t* q_row = smem + L::kQ + (rb + x) * 128 + (ln % 4) * 4;
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * q + 2 * hh;
+        *reinterpret_cast<uint32_t*>(q_row + n * L::kRows * 128 + hh * 8 * 128 + ((q ^ x) << 4)) =
+            pack_bf16(dq_acc[n][i], dq_acc[n][i + 1]);
+      }
+  fence_proxy_async();
+  named_barrier(2, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int cb = 0; cb < kNB; ++cb) tma_store_4d(&tm_dq, q_s + cb * L::kRows * 128, cb * 64, h, q0, bi);
+    bulk_commit();
+    bulk_wait_all();
+  }
 }
 
-template <int DH, int NWG>
-int launch_backward(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                    const void* delta, void* dq, void* dk, void* dv, int b, int sq, int sk, int hq,
-                    int hkv, float scale, int causal, int window, cudaStream_t st) {
-  using L = BwdLayout<DH, NWG>;
-  const int bytes = L::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<DH, NWG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DH, NWG>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The backward's last launch: each query tile's float32 dQ sum, fragment-major as the dQ
+// writers left it (at head_dim 64 the two warpgroups' key halves, added here), as bf16 rows
+// of dq, one block a tile. Rows from `live` on allow no key: flash_bwd_dead wrote them, and
+// a tile of such rows alone has no sum.
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_convert(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq, int sq, int hq,
+                     int nqt, int live) {
+  constexpr int kFloats = Bwd<DH, true>::kAccFloats;
+  __shared__ __align__(16) float part[kFloats];
+  const int64_t tile = blockIdx.x;
+  const int t = static_cast<int>(tile % nqt), h = static_cast<int>(tile / nqt % hq);
+  const int64_t bi = tile / nqt / hq;
+  const float4* a = reinterpret_cast<const float4*>(acc + tile * kFloats);
+  for (int i = threadIdx.x; i < kFloats / 4; i += 128) reinterpret_cast<float4*>(part)[i] = a[i];
+  __syncthreads();
+  // 16-byte chunks of dq rows: element (r, c) of the tile is fragment element i of thread
+  // w = 32 (r / 16) + 4 (r % 8) + (c % 8) / 2 of part p = c / 64 (the column half),
+  // i = 4 ((c % 64) / 8) + 2 ((r % 16) / 8) + c % 2; eight columns are two float4 of part
+  constexpr int kChunks = DH / 8;
+  const int rows = min(sq - t * kQT, live - t * kQT);
+  for (int j = threadIdx.x; j < kQT * kChunks; j += 128) {
+    const int r = j / kChunks, c0 = j % kChunks * 8;
+    if (r >= rows) continue;
+    const int p = c0 / 64, i = 4 * ((c0 % 64) / 8) + 2 * ((r % 16) / 8);
+    const int w = 32 * (r / 16) + 4 * (r % 8);
+    const float4 e = *reinterpret_cast<const float4*>(part + (p * 32 + i) * 128 + w);
+    const float4 o = *reinterpret_cast<const float4*>(part + (p * 32 + i + 1) * 128 + w);
+    const uint4 out = make_uint4(pack_bf16(e.x, o.x), pack_bf16(e.y, o.y), pack_bf16(e.z, o.z),
+                                 pack_bf16(e.w, o.w));
+    *reinterpret_cast<uint4*>(dq + ((bi * sq + t * kQT + r) * hq + h) * DH + c0) = out;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+}
+
+// The backward's first launch: D = rowsum(dO * O) and the logsumexp in base 2 (+inf where
+// no key is allowed) of each query row into ws [2][B * Hq][sqp] (rows past Sq: +inf and
+// 0, so the ring's last tile reads P = 0), one warp a row, and every dQ flag to 0.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ ws, int* __restrict__ flags,
+               int64_t rows, int n_flags, int sq, int hq, int sqp, int dh) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x; i < n_flags;
+       i += static_cast<int64_t>(gridDim.x) * 256) {
+    flags[i] = 0;
+  }
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int pos = static_cast<int>(row % sqp);
+  const int64_t bh = row / sqp, h = bh % hq, bb = bh / hq;
+  float sum = 0.f;
+  if (pos < sq) {
+    const int64_t at = ((bb * sq + pos) * hq + h) * dh;
+    for (int d = lane; d < dh; d += 32) sum += __bfloat162float(o[at + d]) * __bfloat162float(dout[at + d]);
+  }
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    ws[row] = pos < sq ? lse_base2(lse[bh * sq + pos]) : INFINITY;
+    ws[rows + row] = sum;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The rows of one head of a bf16 [B, S, H, dh] tensor: a box of `rows` positions x 64
+// columns (one 128-byte swizzled column block), positions past S read as zeros.
+bool rows_map(CUtensorMap* map, const void* base, int b, int s, int h, int dh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(dh) * 2, static_cast<cuuint64_t>(h) * dh * 2,
+                                 static_cast<cuuint64_t>(s) * h * dh * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Blocks of the one pass (flash_bwd_wgmma<DH, true>) that can be resident at once on the
+// current device: the largest grid a cooperative launch of it takes.
+template <int DH>
+int resident_blocks() {
+  const int bytes = Bwd<DH, true>::kSmemBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_wgmma<DH, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int per_sm = 0, sms = 0, dev = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_wgmma<DH, true>,
+                                                        Bwd<DH, true>::kThreads, bytes);
+  }
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
+}
+
+// prep (D, the base-2 lse, the dQ flags when given) and, for shapes with rows that allow no
+// key, flash_bwd_dead: the launches before either route's main kernels. sqp is Sq rounded up
+// to the route's query tile.
+inline int launch_prep(const void* out, const void* lse, const void* dout, void* dq, void* ws,
+                       void* flags, void* dead_dv, int b, int sq, int sk, int hq, int hkv, int dh,
+                       int sqp, int window, int dead_keys, cudaStream_t st) {
+  const int64_t rows = static_cast<int64_t>(b) * hq * sqp;
+  const int n_flags = flags != nullptr ? b * hq * (sqp / kQT) : 0;
   using bf = __nv_bfloat16;
-  const bf *qp = static_cast<const bf*>(q), *kp = static_cast<const bf*>(k),
-           *vp = static_cast<const bf*>(v), *dop = static_cast<const bf*>(dout);
-  const float *lp = static_cast<const float*>(lse), *dp = static_cast<const float*>(delta);
-  flash_bwd_dkdv_wgmma<DH, NWG><<<dim3((sk + L::kRows - 1) / L::kRows, hkv, b), L::kThreads, bytes,
-                                 st>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk, hq, hkv, scale,
-      causal, window);
-  flash_bwd_dq_wgmma<DH, NWG><<<dim3(hq, (sq + L::kRows - 1) / L::kRows, b), L::kThreads, bytes,
-                               st>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<bf*>(dq), sq, sk, hq, hkv, scale, causal, window);
+  flash_bwd_prep<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const bf*>(out), static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(ws), static_cast<int*>(flags), rows, n_flags, sq, hq, sqp, dh);
+  if (window > 0 && sq > sk + window - 1) {
+    return launch_dead<bf>(dout, dead_dv, dq, b, sq, sk, hq, hkv, dh, window, dead_keys, st);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The one pass: prep, [dead], the cooperative launch of the persistent grid, the conversion.
+// A cooperative launch makes every block of the grid resident at once (a block waits on
+// items of the others) or fails: with the SMs partly held by other work it waits for them.
+template <int DH>
+int launch_one_pass(const void* q, const void* k, const void* v, const void* out, const void* lse,
+                    const void* dout, void* dq, void* dk, void* dv, void* ws, void* acc, void* flags,
+                    void* dead_dv, const void* sched, int b, int sq, int sk, int hq, int hkv,
+                    float scale, int causal, int window, int dead_keys, int blocks, cudaStream_t st) {
+  using L = Bwd<DH, true>;
+  const int resident = resident_blocks<DH>();
+  if (resident < 0) return -resident;
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop || blocks <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
+  if (!rows_map(&tm_q, q, b, sq, hq, DH, kQT) || !rows_map(&tm_do, dout, b, sq, hq, DH, kQT) ||
+      !rows_map(&tm_k, k, b, sk, hkv, DH, kKB) || !rows_map(&tm_v, v, b, sk, hkv, DH, kKB) ||
+      !rows_map(&tm_dk, dk, b, sk, hkv, DH, kKB) || !rows_map(&tm_dv, dv, b, sk, hkv, DH, kKB)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sqp = (sq + kQT - 1) / kQT * kQT;
+  int err = launch_prep(out, lse, dout, dq, ws, flags, dead_dv, b, sq, sk, hq, hkv, DH, sqp, window,
+                        dead_keys, st);
+  if (err != 0) return err;
+  const bool dead = window > 0 && sq > sk + window - 1;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmemBytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_bwd_wgmma<DH, true>, tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv,
+                         static_cast<const float*>(ws), static_cast<const int*>(sched),
+                         static_cast<float*>(acc), static_cast<int*>(flags),
+                         dead ? static_cast<const float*>(dead_dv) : nullptr, b, sq, sk, hq, hkv, sqp,
+                         scale, causal, window);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int live = window > 0 ? min(sq, sk + window - 1) : sq;
+  flash_bwd_dq_convert<DH><<<b * hq * (sqp / kQT), 128, 0, st>>>(
+      static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(dq), sq, hq, sqp / kQT, live);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-kernel route: prep, [dead], the dK/dV pass (flash_bwd_wgmma<DH, false>, one block an
+// item), the dQ pass (flash_bwd_dq_wgmma<DH>, one block a 128-position query block).
+template <int DH>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, void* dq, const float* ws,
+              int b, int sq, int sk, int hq, int hkv, int sqp, float scale, int causal, int window,
+              cudaStream_t st) {
+  using Q = BwdDq<DH>;
+  const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DH>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  if (!rows_map(&tm_q, q, b, sq, hq, DH, Q::kRows) || !rows_map(&tm_do, dout, b, sq, hq, DH, Q::kRows) ||
+      !rows_map(&tm_k, k, b, sk, hkv, DH, kQT) || !rows_map(&tm_v, v, b, sk, hkv, DH, kQT) ||
+      !rows_map(&tm_dq, dq, b, sq, hq, DH, Q::kRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  flash_bwd_dq_wgmma<DH><<<b * hq * ((sq + Q::kRows - 1) / Q::kRows), Q::kThreads, Q::kSmemBytes, st>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dq, ws, b, sq, sk, hq, hkv, sqp, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-kernel route: prep, [dead], the dK/dV pass (flash_bwd_wgmma<DH, false>, one block an
+// item), the dQ pass (flash_bwd_dq_wgmma<DH>, one block 64 query positions).
+template <int DH>
+int launch_two_kernels(const void* q, const void* k, const void* v, const void* out, const void* lse,
+                       const void* dout, void* dq, void* dk, void* dv, void* ws, void* dead_dv, int b,
+                       int sq, int sk, int hq, int hkv, float scale, int causal, int window,
+                       int dead_keys, cudaStream_t st) {
+  using KV = Bwd<DH, false>;
+  const cudaError_t e = cudaFuncSetAttribute(flash_bwd_wgmma<DH, false>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, KV::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
+  if (!rows_map(&tm_q, q, b, sq, hq, DH, kQT) || !rows_map(&tm_do, dout, b, sq, hq, DH, kQT) ||
+      !rows_map(&tm_k, k, b, sk, hkv, DH, kKB) || !rows_map(&tm_v, v, b, sk, hkv, DH, kKB) ||
+      !rows_map(&tm_dk, dk, b, sk, hkv, DH, kKB) || !rows_map(&tm_dv, dv, b, sk, hkv, DH, kKB)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sqp = (sq + kQT - 1) / kQT * kQT;
+  int err = launch_prep(out, lse, dout, dq, ws, nullptr, dead_dv, b, sq, sk, hq, hkv, DH, sqp, window,
+                        dead_keys, st);
+  if (err != 0) return err;
+  const bool dead = window > 0 && sq > sk + window - 1;
+  const float* wsf = static_cast<const float*>(ws);
+  const int nkb = (sk + kKB - 1) / kKB;
+  flash_bwd_wgmma<DH, false><<<b * hkv * nkb, KV::kThreads, KV::kSmemBytes, st>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, wsf, nullptr, nullptr, nullptr,
+      dead ? static_cast<const float*>(dead_dv) : nullptr, b, sq, sk, hq, hkv, sqp, scale, causal,
+      window);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_dq<DH>(q, k, v, dout, dq, wsf, b, sq, sk, hq, hkv, sqp, scale, causal, window, st);
 }
 
 }  // namespace wg
@@ -775,11 +1451,6 @@ constexpr int kSmemFloats = kRows * kStride + kTile * kStride + kTile * kMaxDh +
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
 static_assert(kThreads == (kRows / kRowsPerThread) * kColGroups, "thread layout");
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_float(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_float(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
 
 // Max / sum over the 8 consecutive lanes that share a row group.
 __device__ __forceinline__ float group_max(float v) {
@@ -989,8 +1660,9 @@ template <typename T, bool KV>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ d1, T* __restrict__ d2, int sq,
-               int sk, int hkv, int g, int dh, float scale, int causal, int window) {
+               const float* __restrict__ delta, const float* __restrict__ dead_dv, T* __restrict__ d1,
+               T* __restrict__ d2, int sq, int sk, int hkv, int g, int dh, float scale, int causal,
+               int window) {
   extern __shared__ float smem[];
   float* own1 = smem;                          // K or Q  [kBwdRows][kStride]
   float* own2 = own1 + kBwdRows * kStride;     // V or dO
@@ -1110,9 +1782,10 @@ flash_bwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int col = cq + 4 * c;
     if (col < dh) {
       from_float(acc1[c], &o1[col]);
-      if constexpr (KV) {
-        from_float(acc2[c], &d2[static_cast<int64_t>(b) * sk * kv_stride + row * kv_stride +
-                                kvh * dh + col]);
+      if constexpr (KV) {  // + dO / keys of each row that allows no key (flash_bwd_dead)
+        const float dead = dead_dv != nullptr ? dead_dv[(static_cast<int64_t>(b) * hkv + kvh) * dh + col] : 0.f;
+        from_float(acc2[c] + dead, &d2[static_cast<int64_t>(b) * sk * kv_stride + row * kv_stride +
+                                       kvh * dh + col]);
       }
     }
   }
@@ -1120,9 +1793,15 @@ flash_bwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 template <typename T>
 int launch_backward(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                    const void* delta, void* dq, void* dk, void* dv, int b, int sq, int sk, int hq,
-                    int hkv, int dh, float scale, int causal, int window, cudaStream_t st) {
+                    const void* delta, void* dead_dv, void* dq, void* dk, void* dv, int b, int sq,
+                    int sk, int hq, int hkv, int dh, float scale, int causal, int window,
+                    int dead_keys, cudaStream_t st) {
   if (dh <= 0 || dh > kMaxDh) return static_cast<int>(cudaErrorInvalidValue);
+  const bool dead = window > 0 && sq > sk + window - 1;
+  if (dead) {
+    const int e = launch_dead<T>(dout, dead_dv, dq, b, sq, sk, hq, hkv, dh, window, dead_keys, st);
+    if (e != 0) return e;
+  }
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_simt<T, true>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kBwdSmemBytes));
@@ -1136,13 +1815,14 @@ int launch_backward(const void* q, const void* k, const void* v, const void* dou
           *vp = static_cast<const T*>(v), *dop = static_cast<const T*>(dout);
   const float *lp = static_cast<const float*>(lse), *dp = static_cast<const float*>(delta);
   flash_bwd_simt<T, true><<<dim3((sk + kBwdRows - 1) / kBwdRows, hkv, b), kBwdThreads,
-                            kBwdSmemBytes, st>>>(qp, kp, vp, dop, lp, dp, static_cast<T*>(dk),
-                                                 static_cast<T*>(dv), sq, sk, hkv, g, dh, scale,
-                                                 causal, window);
+                            kBwdSmemBytes, st>>>(qp, kp, vp, dop, lp, dp,
+                                                 dead ? static_cast<const float*>(dead_dv) : nullptr,
+                                                 static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
+                                                 hkv, g, dh, scale, causal, window);
   flash_bwd_simt<T, false><<<dim3((sq + kBwdRows - 1) / kBwdRows, hq, b), kBwdThreads,
-                             kBwdSmemBytes, st>>>(qp, kp, vp, dop, lp, dp, static_cast<T*>(dq),
-                                                  nullptr, sq, sk, hkv, g, dh, scale, causal,
-                                                  window);
+                             kBwdSmemBytes, st>>>(qp, kp, vp, dop, lp, dp, nullptr,
+                                                  static_cast<T*>(dq), nullptr, sq, sk, hkv, g, dh,
+                                                  scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1208,49 +1888,74 @@ extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k, const vo
 }
 
 // The backward: q, k, v, the forward's out and lse, dout -> dq, dk, dv (q's shapes and
-// dtype), with `delta` a float32 [B, Hq, Sq] workspace. Three launches on `stream`.
+// dtype). Workspaces: `ws` float32 (simt: D [B, Hq, Sq]; the tensor-core routes: the base-2
+// lse and D, [2, B, Hq, Sqp], Sqp = Sq rounded up to 64); `dead_dv` float32 [B, Hkv, dh], written and read only where a row allows no
+// key (window > 0 and Sq > Sk + window - 1), whose output gradient is divided by `dead_keys`.
+// The bf16 tensor-core entry runs the one pass when it is given `acc` (float32
+// [B, Hq, Sqp, 64], the ordered dQ sums), `flags` (int32 [B, Hq, Sqp / 64]) and `sched` (its
+// work list for `blocks` co-resident blocks, kernels/flash_attention.py:backward_schedule),
+// and the two kernels when `acc` is null; the caller chooses. Every launch is on `stream`.
 extern "C" int flash_attention_backward_f32(const void* q, const void* k, const void* v,
                                             const void* out, const void* lse, const void* dout,
-                                            void* dq, void* dk, void* dv, void* delta, int b,
+                                            void* dq, void* dk, void* dv, void* ws, void* acc,
+                                            void* flags, void* dead_dv, const void* sched, int b,
                                             int sq, int sk, int hq, int hkv, int dh, float scale,
-                                            int causal, int window, void* stream) {
+                                            int causal, int window, int dead_keys, int blocks,
+                                            void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = simt::launch_delta<float>(out, dout, delta, b, sq, hq, dh, st);
+  const int err = simt::launch_delta<float>(out, dout, ws, b, sq, hq, dh, st);
   if (err != 0 || b == 0 || sq == 0 || sk == 0) return err;
-  return simt::launch_backward<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, hq, hkv, dh,
-                                      scale, causal, window, st);
+  return simt::launch_backward<float>(q, k, v, dout, lse, ws, dead_dv, dq, dk, dv, b, sq, sk, hq, hkv,
+                                      dh, scale, causal, window, dead_keys, st);
 }
 
 extern "C" int flash_attention_backward_bf16(const void* q, const void* k, const void* v,
                                              const void* out, const void* lse, const void* dout,
-                                             void* dq, void* dk, void* dv, void* delta, int b,
+                                             void* dq, void* dk, void* dv, void* ws, void* acc,
+                                             void* flags, void* dead_dv, const void* sched, int b,
                                              int sq, int sk, int hq, int hkv, int dh, float scale,
-                                             int causal, int window, void* stream) {
+                                             int causal, int window, int dead_keys, int blocks,
+                                             void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = simt::launch_delta<__nv_bfloat16>(out, dout, delta, b, sq, hq, dh, st);
+  const int err = simt::launch_delta<__nv_bfloat16>(out, dout, ws, b, sq, hq, dh, st);
   if (err != 0 || b == 0 || sq == 0 || sk == 0) return err;
-  return simt::launch_backward<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, hq,
-                                              hkv, dh, scale, causal, window, st);
+  return simt::launch_backward<__nv_bfloat16>(q, k, v, dout, lse, ws, dead_dv, dq, dk, dv, b, sq, sk,
+                                              hq, hkv, dh, scale, causal, window, dead_keys, st);
 }
 
-// bf16 on the tensor cores: head_dim 64 or 128, every tensor 16-byte aligned (the wrapper
-// checks).
+// bf16 on the tensor cores, head_dim 64 or 128: the one pass when `acc` is given (head_dim 64
+// only), else the two kernels; q, k, v, out and dout 16-byte aligned (the wrapper checks).
 extern "C" int flash_attention_backward_bf16_wgmma(const void* q, const void* k, const void* v,
                                                    const void* out, const void* lse,
                                                    const void* dout, void* dq, void* dk, void* dv,
-                                                   void* delta, int b, int sq, int sk, int hq,
+                                                   void* ws, void* acc, void* flags, void* dead_dv,
+                                                   const void* sched, int b, int sq, int sk, int hq,
                                                    int hkv, int dh, float scale, int causal,
-                                                   int window, void* stream) {
+                                                   int window, int dead_keys, int blocks,
+                                                   void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || (dh != 64 && dh != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (b == 0 || sq == 0 || sk == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = simt::launch_delta<__nv_bfloat16>(out, dout, delta, b, sq, hq, dh, st);
-  if (err != 0 || b == 0 || sq == 0 || sk == 0) return err;
-  // warpgroups a block: at head_dim 64 one (two blocks an SM, each on its own schedule), at 128
-  // two (the register file holds one block an SM either way); both measured faster so
-  if (dh == 64) return wg::launch_backward<64, 1>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, hq, hkv, scale, causal, window, st);
-  return wg::launch_backward<128, 2>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, hq, hkv, scale, causal, window, st);
+  if (acc != nullptr) {
+    if (dh != 64 || flags == nullptr || sched == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return wg::launch_one_pass<64>(q, k, v, out, lse, dout, dq, dk, dv, ws, acc, flags, dead_dv, sched,
+                                   b, sq, sk, hq, hkv, scale, causal, window, dead_keys, blocks, st);
+  }
+  if (dh == 64) {
+    return wg::launch_two_kernels<64>(q, k, v, out, lse, dout, dq, dk, dv, ws, dead_dv, b, sq, sk, hq,
+                                      hkv, scale, causal, window, dead_keys, st);
+  }
+  return wg::launch_two_kernels<128>(q, k, v, out, lse, dout, dq, dk, dv, ws, dead_dv, b, sq, sk, hq,
+                                     hkv, scale, causal, window, dead_keys, st);
+}
+
+// How many blocks of the one pass (head_dim 64) the current device holds at once (the grid
+// its work list is made for), or minus a CUDA error.
+extern "C" int flash_attention_backward_resident_blocks(int dh) {
+  if (dh == 64) return wg::resident_blocks<64>();
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,8 +36,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, out, lse (float32 [B, Hq, Sq] or null), b, sq, sk, hq, hkv, dh, scale, causal,
 # window, stream
 _FLASH = (_P,) * 5 + (_I,) * 6 + (_F, _I, _I, _P)
-# the backward: q, k, v, out, lse, dout, dq, dk, dv, a float32 workspace (D), then as _FLASH
-_FLASH_BACKWARD = (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _P)
+# the backward: q, k, v, out, lse, dout, dq, dk, dv, workspaces (ws: D and the lse; acc: the
+# ordered dQ sums; flags; dead_dv: the rows that allow no key), the work list, b, sq, sk, hq,
+# hkv, dh, scale, causal, window, the columns a row without a key averages over, the grid's
+# blocks, stream
+_FLASH_BACKWARD = (_P,) * 14 + (_I,) * 6 + (_F, _I, _I, _I, _I, _P)
 # q, k, v, slot_pos, cur_pos, out, float32 workspace, b, s, hq, hkv, dh, scale, window,
 # nsplit, split_slots, stream
 _DECODE = (_P,) * 7 + (_I,) * 5 + (_F, _I, _I, _I, _P)
@@ -63,7 +66,8 @@ SIGNATURES = {
         "flash_attention_bf16_wgmma": _FLASH,  # bf16 on the tensor cores, head_dim 64 or 128
         "flash_attention_backward_f32": _FLASH_BACKWARD,
         "flash_attention_backward_bf16": _FLASH_BACKWARD,
-        "flash_attention_backward_bf16_wgmma": _FLASH_BACKWARD,
+        "flash_attention_backward_bf16_wgmma": _FLASH_BACKWARD,  # the one pass or two kernels
+        "flash_attention_backward_resident_blocks": (_I,),  # head_dim -> the grid it holds
     },
     "moe_gmm": {
         # xe, we, live (int32 [E, G] or null), out, e, rows, groups, d, f, stream
@@ -95,6 +99,7 @@ class BuildRecord:
     path: Path
     cached: bool          # True: loaded a library built earlier
     seconds: float        # nvcc wall time (0 on a cache hit)
+    log: str = ""         # nvcc's output (empty on a cache hit)
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -149,7 +154,7 @@ def build_all(verbose: bool = False) -> Dict[str, BuildRecord]:
         if verbose and log.strip():
             print(log.strip())
         os.replace(tmp, target)  # atomic: a concurrent loader sees no half-written file
-        records[name] = BuildRecord(name, target, False, seconds)
+        records[name] = BuildRecord(name, target, False, seconds, log)
     if failures:
         raise RuntimeError("\n".join(failures))
     return records

@@ -20,12 +20,17 @@ KV head).
 ``plain`` on CPU tensors), its backward is ``backward``, the backward kernels
 of the same source (``plain_backward``, the gradient formula in torch ops, on
 CPU tensors; the reference has no backward kernel: XLA differentiates its
-``chunked_attention``). ``chunked_backward_reference`` is the backward
-kernels' passes in float32 PyTorch, for the tests.
+``chunked_attention``). In bf16 at head_dim 64 and 128 the backward runs on the tensor
+cores by one of two routes, which ``one_pass_for`` chooses: the one pass (head_dim 64), over a
+persistent grid that sums each query tile's dQ in a fixed order (``backward_plan`` says which
+key blocks and query tiles meet, ``backward_schedule`` deals the work items to the grid,
+``resident_blocks``, and fixes that order), or a dK/dV kernel and a dQ kernel.
+``chunked_backward_reference`` is the one pass in float32 PyTorch, for the tests.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import heapq
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +40,9 @@ from repro_torch.models.attention import NEG_INF, chunked_attention as plain
 
 __all__ = ["flash_attention", "plain", "cost", "allowed_pairs", "kernel_for", "launches", "MAX_GROUP", "MAX_HEAD_DIM",
            "WGMMA_HEAD_DIMS", "forward_with_lse", "plain_lse", "plain_backward",
-           "chunked_backward_reference",
+           "chunked_backward_reference", "first_dead_row", "dead_row_keys", "KEY_BLOCK",
+           "QUERY_TILE", "BackwardPlan", "backward_plan", "backward_items", "backward_schedule",
+           "resident_blocks", "one_pass_for",
            "backward", "backward_cost", "backward_launches", "FlashAttentionFunction"]
 
 launches = 0  # kernel launches since the last reset (see ``ops.reset_launch_counts``)
@@ -146,10 +153,10 @@ def forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causa
 
 def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                    do: torch.Tensor, *, causal: bool = True, window: int = 0,
-                   scale: Optional[float] = None
+                   scale: Optional[float] = None, kv_block: int = 512
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of ``plain(q, k, v, causal=, window=, scale=)`` = ``o`` for the
-    output gradient ``do``: (dq, dk, dv) in q's dtype.
+    """The gradient of ``plain(q, k, v, causal=, window=, scale=, kv_block=)`` = ``o`` for
+    the output gradient ``do``: (dq, dk, dv) in q's dtype.
 
     P is recomputed in float32 under the mask of ``chunked_attention``: key
     position <= query position if causal, their distance < window if window > 0;
@@ -161,8 +168,11 @@ def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     Q·Kᵀ before the scale, P before dV, scale·dS before dQ and dK. Query rows go
     in blocks of at most ``BACKWARD_BLOCK_ROWS`` positions whose float32 P holds at
     most ``BACKWARD_BLOCK_BYTES``; a block reads only the keys its mask can allow.
-    A query row that allows no key (one at or past Sk + window - 1, which needs a
-    window and Sq > Sk) gets no gradient and passes none to K and V.
+    A query row that allows no key (``first_dead_row``: one at or past Sk + window - 1,
+    which needs a window and Sq > Sk) is, as in the reference, the mean of V over every
+    key and the zero columns that pad Sk to the KV block (``dead_row_keys``): it passes
+    dO/``dead_row_keys`` to each key's dV, summed over the G heads in float32 before dV
+    rounds, and nothing to dQ and dK.
     """
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -179,7 +189,7 @@ def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     dq = torch.zeros((bh, sq, g, dh), dtype=torch.float32, device=dev)
     dk = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
     dv = torch.zeros((bh, sk, dh), dtype=torch.float32, device=dev)
-    live_rows = min(sq, sk + window - 1) if window > 0 else sq
+    live_rows = first_dead_row(sq, sk, window)
     rows = max(1, min(BACKWARD_BLOCK_ROWS, BACKWARD_BLOCK_BYTES // (4 * b * hq * max(sk, 1))))
     scale_f32 = torch.full((1,), scale, dtype=torch.float32, device=dev)
     for q0 in range(0, live_rows, rows):
@@ -211,10 +221,26 @@ def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         del p
         dq[:, q0:q1] = torch.bmm(ds, kb).reshape(bh, q1 - q0, g, dh)
         dk[:, k0:k1] += torch.bmm(ds.transpose(1, 2), qb)
+    if live_rows < sq:
+        dv += doh[:, live_rows:].float().sum(dim=(1, 2))[:, None] / dead_row_keys(sk, kv_block)
     dq = dq.reshape(b, hkv, sq, g, dh).transpose(1, 2).reshape(b, sq, hq, dh)
     out = lambda t: t.to(dt).contiguous()
     return out(dq), out(dk.reshape(b, hkv, sk, dh).transpose(1, 2)), \
         out(dv.reshape(b, hkv, sk, dh).transpose(1, 2))
+
+
+def first_dead_row(sq: int, sk: int, window: int) -> int:
+    """The first query position whose mask allows no key (``sq`` if there is none): one at or
+    past Sk + window - 1 has every key out of its window, which needs a window and Sq > Sk."""
+    return min(sq, sk + window - 1) if window > 0 else sq
+
+
+def dead_row_keys(sk: int, kv_block: int = 512) -> int:
+    """The columns a row that allows no key averages V over in ``plain`` (and the reference's
+    ``chunked_attention``) with this KV block: Sk padded with zero columns to a multiple of
+    min(kv_block, Sk). Every column of such a row is masked alike, so each weighs the same."""
+    blk = min(kv_block, sk)
+    return -(-sk // blk) * blk
 
 
 def _allowed(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -249,20 +275,119 @@ def plain_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: 
     return torch.cat(out, dim=-1).reshape(b, hq, sq)
 
 
+# the bf16 backward kernel's tiles: a work item is KEY_BLOCK keys of one KV head and batch
+# row (one consumer warpgroup a 64-key half), its steps QUERY_TILE query positions of one
+# query head each
+KEY_BLOCK, QUERY_TILE = 128, 64
+
+
+class BackwardPlan(NamedTuple):
+    """Which tiles of a backward call meet: ``reach[m]`` is the half-open range of query tiles
+    that key block m's mask reaches, ``writers[t]`` the inclusive range of key blocks that
+    reach query tile t (empty, lo > hi, for a tile of rows that allow no key). Query tile t
+    takes its dQ partials from key blocks ``writers[t][1]`` down to ``writers[t][0]``."""
+    reach: List[Tuple[int, int]]
+    writers: List[Tuple[int, int]]
+
+
+def backward_plan(sq: int, sk: int, causal: bool, window: int) -> BackwardPlan:
+    """The (key block, query tile) pairs that hold an allowed (query, key) pair (as
+    ``allowed_pairs`` counts them): key block m's keys [kf, kl] and tile t's rows [qf, ql]
+    meet if kf <= ql when causal and kl > qf - window when ``window`` > 0. Both are bands,
+    so each key block reaches a run of tiles and each tile a run of key blocks."""
+    nkb, nqt = -(-sk // KEY_BLOCK), -(-sq // QUERY_TILE)
+    kf = np.arange(nkb) * KEY_BLOCK
+    kl = np.minimum(sk, kf + KEY_BLOCK) - 1
+    qf = np.arange(nqt) * QUERY_TILE
+    ql = np.minimum(sq, qf + QUERY_TILE) - 1
+    meet = np.ones((nkb, nqt), dtype=bool)
+    if causal:
+        meet &= kf[:, None] <= ql[None, :]
+    if window > 0:
+        meet &= kl[:, None] > qf[None, :] - window
+
+    def run(row):
+        hit = np.flatnonzero(row)
+        return (int(hit[0]), int(hit[-1]) + 1) if hit.size else (0, 0)
+
+    reach = [run(meet[m]) for m in range(nkb)]
+    writers = [(lo, hi - 1) if hi > lo else (1, 0) for lo, hi in (run(meet[:, t]) for t in range(nqt))]
+    return BackwardPlan(reach, writers)
+
+
+def backward_items(b: int, hkv: int, plan: BackwardPlan) -> List[int]:
+    """The work items in the order the kernel's blocks take them: every (batch, KV head)'s
+    last key block, then every one's last but one, and so on. A key block adds its dQ
+    partial to a query tile after the key blocks above it, which come earlier here, so an
+    item waits only on earlier items. An item is (b·Hkv + kv head)·n_key_blocks + key block."""
+    nkb = len(plan.reach)
+    return [grp * nkb + m for m in reversed(range(nkb)) for grp in range(b * hkv)]
+
+
+def backward_schedule(b: int, sq: int, sk: int, hq: int, hkv: int, causal: bool, window: int,
+                      blocks: int) -> np.ndarray:
+    """The bf16 backward kernel's work list for a grid of ``blocks`` co-resident blocks, as
+    the int32 array it reads:
+
+    - a header [blocks, L, n_key_blocks, n_query_tiles];
+    - each key block's reach (``backward_plan``: first tiles, then ends);
+    - one row of L + 1 a block: its item count, then its items (``backward_items``);
+    - for each item, in item order, where its turns start in the last part;
+    - the turns: for each item, for each tile of its reach, how many key blocks add their
+      dQ partial to that tile before it (the tile's last writer has turn writers - 1).
+
+    ``backward_items`` are dealt out in their order, each to the block with the least work
+    so far (a step, one query tile of one head, a unit; an item one more for its K/V load
+    and epilogue). A block takes its items in the list's order, and a tile takes its
+    partials in the list's order too, so every item waits only on items taken earlier, by
+    blocks that are all resident: the grid cannot deadlock."""
+    plan = backward_plan(sq, sk, causal, window)
+    g = hq // hkv
+    nkb, nqt = len(plan.reach), len(plan.writers)
+    order = backward_items(b, hkv, plan)
+    rows: List[List[int]] = [[] for _ in range(blocks)]
+    load = [(0, j) for j in range(blocks)]
+    for item in order:
+        lo, hi = plan.reach[item % nkb]
+        work, j = heapq.heappop(load)
+        rows[j].append(item)
+        heapq.heappush(load, (work + (hi - lo) * g + 1, j))
+    width = max(len(r) for r in rows)
+    table = np.zeros((blocks, width + 1), dtype=np.int64)
+    for j, r in enumerate(rows):
+        table[j, 0] = len(r)
+        table[j, 1:len(r) + 1] = r
+    # turn of (item, tile): the tile's writers of its group that come earlier in the list
+    taken: dict = {}
+    turn = {}
+    for item in order:
+        grp, m = divmod(item, nkb)
+        for t in range(*plan.reach[m]):
+            turn[item, t] = taken.get((grp, t), 0)
+            taken[grp, t] = turn[item, t] + 1
+    offsets, turns = [], []
+    for item in range(len(order)):
+        offsets.append(len(turns))
+        turns += [turn[item, t] for t in range(*plan.reach[item % nkb])]
+    reach = np.asarray(plan.reach).reshape(-1, 2)
+    return np.concatenate([[blocks, width, nkb, nqt], reach[:, 0], reach[:, 1], table.ravel(),
+                           offsets, turns]).astype(np.int32)
+
+
 def chunked_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                                causal: bool = True, window: int = 0,
                                scale: Optional[float] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels' passes in float32 PyTorch: (dq, dk, dv) in q's dtype.
+    """The bf16 backward kernel's pass in float32 PyTorch: (dq, dk, dv) in q's dtype.
 
-    (a) D = rowsum(dO ∘ O); (b) for each block of 128 keys, dK and dV summed over the G
-    query heads in turn and each head's 64-position query blocks that the mask lets
-    reach the block, from P = exp(scale·QKᵀ − lse); (c) for each block of 128 query
-    positions, dQ summed over the 64-key tiles its mask reaches. The kernels' blocks
-    hold 64 or 128 rows; a row's sums are the same in either (a tile that adds nothing
-    to a row's sum adds exact zeros). P and scale·dS round to q's dtype before their
-    products, as the kernels round them; everything else is float32."""
+    D = rowsum(dO ∘ O). Each ``KEY_BLOCK``-key block walks the query tiles its mask
+    reaches (``backward_plan``), and for each the G query heads in turn: from
+    P = exp(scale·QKᵀ − lse) it adds to its dV and dK and hands the tile its dQ partial
+    dS·K. A query tile sums its partials in the kernel's fixed order, from the highest key
+    block down. A row that allows no key adds dO/``dead_row_keys`` to every key's dV (summed
+    over the G heads and such rows, in float32 before dV rounds). P and scale·dS round to q's dtype
+    before their products, as the kernel rounds them; everything else is float32."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -275,39 +400,27 @@ def chunked_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     delta = (do.float() * o.float()).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
     lse = lse.reshape(b, hkv, g, sq)
     ok = _allowed(sq, sk, causal, window, q.device)
-
-    def probs(s, lse_rows, mask):
-        return torch.where(mask, torch.exp(s * scale - lse_rows), torch.zeros((), device=s.device))
-
+    plan = backward_plan(sq, sk, causal, window)
     dk = torch.zeros((b, hkv, sk, dh), device=q.device)
     dv = torch.zeros_like(dk)
-    n_qt = -(-sq // 64)
-    for k0 in range(0, sk, 128):                                    # (b)
-        k1 = min(sk, k0 + 128)
-        qt0 = min(k0 // 64, n_qt) if causal else 0
-        qt1 = min(n_qt, (k0 + 127 + window - 1) // 64 + 1) if window > 0 else n_qt
+    dq = torch.zeros_like(qh)
+    for m in reversed(range(len(plan.reach))):      # each tile's dQ order: key blocks downwards
+        k0, k1 = m * KEY_BLOCK, min(sk, (m + 1) * KEY_BLOCK)
         kb, vb = kh[:, :, k0:k1], vh[:, :, k0:k1]
-        for gi in range(g):
-            for q0 in range(qt0 * 64, qt1 * 64, 64):
-                q1 = min(sq, q0 + 64)
+        for t in range(*plan.reach[m]):
+            q0, q1 = t * QUERY_TILE, min(sq, (t + 1) * QUERY_TILE)
+            for gi in range(g):
                 qb, dob = qh[:, :, gi, q0:q1], doh[:, :, gi, q0:q1]
-                p = probs(kb @ qb.transpose(-1, -2), lse[:, :, gi, None, q0:q1],
-                          ok[q0:q1, k0:k1].T)                      # Pᵀ [B, Hkv, keys, queries]
+                s = kb @ qb.transpose(-1, -2)                       # Sᵀ [B, Hkv, keys, queries]
+                p = torch.where(ok[q0:q1, k0:k1].T, torch.exp(s * scale - lse[:, :, gi, None, q0:q1]),
+                                torch.zeros((), device=s.device))
                 ds = rnd(p * (vb @ dob.transpose(-1, -2) - delta[:, :, gi, None, q0:q1]) * scale)
                 dv[:, :, k0:k1] += rnd(p) @ dob
                 dk[:, :, k0:k1] += ds @ qb
-    dq = torch.zeros_like(qh)
-    for q0 in range(0, sq, 128):                                    # (c)
-        q1 = min(sq, q0 + 128)
-        t0 = max(0, q0 - window + 1) // 64 if window > 0 else 0
-        t1 = min(-(-sk // 64), (q0 + 127) // 64 + 1) if causal else -(-sk // 64)
-        qb, dob = qh[:, :, :, q0:q1], doh[:, :, :, q0:q1]
-        for k0 in range(t0 * 64, t1 * 64, 64):
-            k1 = min(sk, k0 + 64)
-            kb, vb = kh[:, :, None, k0:k1], vh[:, :, None, k0:k1]
-            p = probs(qb @ kb.transpose(-1, -2), lse[..., q0:q1, None], ok[q0:q1, k0:k1])
-            ds = rnd(p * (dob @ vb.transpose(-1, -2) - delta[..., q0:q1, None]) * scale)
-            dq[:, :, :, q0:q1] += ds @ kb
+                dq[:, :, gi, q0:q1] += ds.transpose(-1, -2) @ kb
+    dead = first_dead_row(sq, sk, window)
+    if dead < sq:
+        dv += doh[:, :, :, dead:].sum(dim=(2, 3))[:, :, None] / dead_row_keys(sk)
     out = lambda t: t.to(dt).contiguous()
     return (out(dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)), out(dk.transpose(1, 2)),
             out(dv.transpose(1, 2)))
@@ -325,11 +438,55 @@ def backward_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
                                     + 4 * b * hq * sq))
 
 
+def one_pass_for(dtype: torch.dtype, dh: int, causal: bool, window: int) -> bool:
+    """Whether the bf16 tensor-core backward takes the one pass (else the two kernels): at
+    head_dim 64 under a causal sliding window, the shapes where it measured faster (hymba's
+    sliding layers; ``PERF.md``: the two kernels won at its global layers and whisper's self
+    and cross attention, and the one pass does not run at 128). Both routes hold the same
+    gradient; this is the one place that chooses."""
+    return dtype == torch.bfloat16 and dh == 64 and causal and window > 0
+
+
+_resident: dict = {}    # (device index, head_dim) -> co-resident blocks of the one-pass kernel
+_schedules: dict = {}   # the work lists already on a device, by shape
+
+
+def resident_blocks(device: torch.device, dh: int) -> int:
+    """How many blocks of the bf16 backward kernel at head_dim ``dh`` the card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times its SMs): its grid."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), dh)
+    if key not in _resident:
+        n = _build.library("flash_attention").flash_attention_backward_resident_blocks(dh)
+        _build.check(0 if n > 0 else (-n or 1), "flash_attention backward: resident blocks")
+        _resident[key] = n
+    return _resident[key]
+
+
+def _schedule_on(device: torch.device, b: int, sq: int, sk: int, hq: int, hkv: int,
+                 causal: bool, window: int, dh: int) -> Tuple[torch.Tensor, int]:
+    """``backward_schedule`` for the card's resident grid (no larger than the items), as an
+    int32 tensor on ``device``, made once a shape."""
+    blocks = min(b * hkv * -(-sk // KEY_BLOCK), resident_blocks(device, dh))
+    key = (str(device), b, sq, sk, hq, hkv, bool(causal), int(window), blocks)
+    if key not in _schedules:
+        _schedules[key] = torch.from_numpy(backward_schedule(b, sq, sk, hq, hkv, bool(causal),
+                                                             int(window), blocks)).to(device)
+    return _schedules[key], blocks
+
+
 def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
              lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True, window: int = 0,
              scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels: q, k, v, the forward's o and lse (``forward_with_lse``) and
-    dO of o's shape -> (dq, dk, dv) in q's dtype."""
+    dO of o's shape -> (dq, dk, dv) in q's dtype; the bf16 tensor-core route is
+    ``one_pass_for``'s."""
+    return _backward(q, k, v, o, lse, do, causal, window, scale,
+                     one_pass_for(q.dtype, q.shape[-1], causal, window))
+
+
+def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: Optional[float],
+              one_pass: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``backward`` by the given bf16 tensor-core route (``chip_smoke.py`` times both)."""
     global backward_launches
     if q.device.type == "meta":
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -347,11 +504,27 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                        f"{what}: o and dO must be 16-byte aligned")
     scale = float(scale if scale is not None else dh**-0.5)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    sched = acc = flags = None
+    blocks = 0
+    _build.require(not one_pass or (entry == _WGMMA and dh == 64),
+                   f"{what}: the one pass takes bf16 at head_dim 64")
+    sqp = -(-sq // QUERY_TILE) * QUERY_TILE
+    if one_pass:   # the work list and the ordered dQ sums
+        sched, blocks = _schedule_on(q.device, b, sq, sk, hq, hkv, causal, window, dh)
+        acc = torch.empty((b, hq, sqp, dh), **f32)   # each query tile's ordered dQ sum
+        flags = torch.empty((b, hq, sqp // QUERY_TILE), dtype=torch.int32, device=q.device)
+    if entry == _WGMMA:   # the base-2 lse and D, rows padded to the query tile
+        ws = torch.empty((2, b, hq, sqp), **f32)
+    else:
+        ws = torch.empty((b, hq, sq), **f32)
+    dead = torch.empty((b, hkv, dh), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = getattr(_build.library("flash_attention"), _BACKWARD_ENTRY[entry])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                    b, sq, sk, hq, hkv, dh, scale, int(bool(causal)), int(window),
+                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+                    ptr(acc), ptr(flags), dead.data_ptr(), ptr(sched), b, sq, sk, hq, hkv, dh,
+                    scale, int(bool(causal)), int(window), dead_row_keys(sk), blocks,
                     _build.stream(q.device)), what)
     backward_launches += 1
     return dq, dk, dv

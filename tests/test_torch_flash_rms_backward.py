@@ -10,9 +10,11 @@ Each Function's backward on the CPU is ``plain_backward`` inside its own kernel 
 and on ``meta`` tensors returns empty outputs of the gradients' shapes; the wrappers
 refuse CPU tensors; the C entries have their ctypes signatures. ``chip_smoke.py``'s
 check of each kernel gradient against its chunked reference takes a rounding flip and
-refuses a dropped or mis-scaled tile; a row that allows no key is pinned as ROADMAP C3
-leaves it. The launches run only on the card (``chip_smoke.py`` phases 2 and 6). Inputs
-come from numpy seeds.
+refuses a dropped or mis-scaled tile; a row that allows no key passes the reference's
+gradient (ROADMAP C3, repaired). The one-pass kernel's work list (``backward_plan``,
+``backward_schedule``) is simulated: every pair once, a fixed order, no deadlock. The
+launches run only on the card (``chip_smoke.py`` phases 2 and 6). Inputs come from numpy
+seeds.
 """
 import importlib.util
 import pathlib
@@ -84,26 +86,22 @@ def _no_key_rows(sq, sk, causal, window):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=_IDS)
 def test_flash_chunked_backward_reference_matches_reference_vjp(case, dtype):
-    """The backward kernels' passes (D, then dK/dV a 128-key block over the G heads'
-    64-position query blocks, then dQ a 128-position block over its 64-key tiles) from
-    the forward's logsumexp give ``jax.vjp``'s gradients. A row that allows no key gets
-    none and passes none on: its output gradient changes nothing. (The reference gives
-    such a row the mean of V over every key, and passes its output gradient to all of
-    V; the comparison with it takes that gradient as zero.)"""
+    """The bf16 kernel's pass (D, then each 128-key block over the query tiles its mask
+    reaches, the G heads in turn, each query tile summing its dQ partials from the highest
+    key block down) from the forward's logsumexp gives ``jax.vjp``'s gradients for the whole
+    output gradient. A row that allows no key is the mean of V over every key, as in the
+    reference (whose KV block, min(512, Sk), pads no column here): it passes dO/Sk to every
+    key's dV and nothing to dQ and dK."""
     b, sq, sk, hq, _, dh, causal, window = case
-    (qj, qt), (kj, kt), (vj, vt), (_, dot) = _flash_inputs(case, dtype)
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _flash_inputs(case, dtype)
     dead = _no_key_rows(sq, sk, causal, window)
-    live = torch.ones((1, sq, 1, 1), dtype=dot.dtype)
-    live[:, dead] = 0
-    do_live = dot * live
-    doj = jnp.asarray(to_numpy(do_live), DTYPES[dtype])
     f = lambda q, k, v: jax_chunked_attention(q, k, v, causal=causal, window=window,
-                                              q_block=32, kv_block=32)
+                                              q_block=32)
     out, want = jax.jit(lambda q, k, v, do: (f(q, k, v), jax.vjp(f, q, k, v)[1](do)))(
         qj, kj, vj, doj)
     o = to_tensor(np.asarray(out), "cpu")
     lse = kfl.plain_lse(qt, kt, causal=causal, window=window)
-    got = kfl.chunked_backward_reference(qt, kt, vt, o, lse, do_live, causal=causal,
+    got = kfl.chunked_backward_reference(qt, kt, vt, o, lse, dot, causal=causal,
                                          window=window)
     for name, g, w, t in zip("qkv", got, want, (qt, kt, vt)):
         assert g.dtype == t.dtype and g.shape == t.shape and g.is_contiguous(), name
@@ -111,11 +109,9 @@ def test_flash_chunked_backward_reference_matches_reference_vjp(case, dtype):
                                    **_tol(dtype))
     assert bool(torch.isinf(lse[..., dead]).all()) and bool(torch.isfinite(
         lse[..., [i for i in range(sq) if i not in dead]]).all())
+    assert dead == list(range(kfl.first_dead_row(sq, sk, window), sq))
     if dead:
-        full = kfl.chunked_backward_reference(qt, kt, vt, o, lse, dot, causal=causal,
-                                              window=window)
-        assert not bool(full[0][:, dead].any())
-        assert torch.equal(full[1], got[1]) and torch.equal(full[2], got[2])
+        assert not bool(got[0][:, dead].any())
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=_IDS)
@@ -151,24 +147,44 @@ def test_flash_chunked_backward_reference_equals_the_formula(case):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
 
 
-def test_a_row_that_allows_no_key_averages_v_but_passes_no_gradient_back():
-    """ROADMAP C3, pinned as it stands: on a row that allows no key the forward gives the
-    mean of V over every key, as the reference does, but ``plain_backward`` (and the
-    kernels, which ``chunked_backward_reference`` mirrors) passes that row's output
-    gradient to nothing, where the reference passes it to all of V. No training shape
-    has such a row: it needs a window and Sq > Sk + window - 1."""
-    case = FLASH_CASES[3]
-    _, sq, sk, _, hkv, _, causal, window = case
-    (_, q), (_, k), (_, v), (_, do) = _flash_inputs(case, "float32", seed=6)
+# ... and one whose Sk (520) the reference's and plain's KV block (512) does not divide
+NO_KEY_CASES = [FLASH_CASES[3], FLASH_CASES[4], (1, 560, 520, 2, 1, 8, True, 16)]
+
+
+@pytest.mark.parametrize("case", NO_KEY_CASES, ids=[_IDS[3], _IDS[4], "sq560-sk520-w16"])
+def test_a_row_that_allows_no_key_averages_v_but_passes_no_gradient_back(case):
+    """ROADMAP C3, repaired: on a row that allows no key ``plain`` gives, as the reference
+    does, the mean of V over every key and the zero columns that pad Sk to the KV block
+    (``dead_row_keys``: Sk when the block divides it, 1024 for Sk = 520 and the default 512),
+    and the backward is that mean's gradient: the row's output gradient reaches every key's
+    dV as dO/``dead_row_keys`` (summed over the G heads) and passes nothing back to Q and K.
+    ``plain_backward`` and ``chunked_backward_reference`` (the kernel's pass) give
+    ``jax.vjp``'s gradients, the reference at its default KV block, for an output gradient on
+    those rows alone. Such a row needs a window and Sq > Sk + window - 1."""
+    _, sq, sk, hq, hkv, _, causal, window = case
+    (qj, q), (kj, k), (vj, v), (_, do) = _flash_inputs(case, "float32", seed=6)
     dead = _no_key_rows(sq, sk, causal, window)
+    assert dead
+    keys = kfl.dead_row_keys(sk)
+    assert keys == (sk if sk <= 512 else 1024)
     o = kfl.plain(q, k, v, causal=causal, window=window)
-    g = q.shape[2] // hkv
-    mean_v = v.mean(dim=1, keepdim=True).repeat_interleave(g, dim=2)
+    mean_v = (v.sum(dim=1, keepdim=True) / keys).repeat_interleave(hq // hkv, dim=2)
     torch.testing.assert_close(o[:, dead], mean_v.expand(-1, len(dead), -1, -1))
     only_dead = torch.zeros_like(do)
     only_dead[:, dead] = do[:, dead]
-    grads = kfl.plain_backward(q, k, v, o, only_dead, causal=causal, window=window)
-    assert not any(bool(t.any()) for t in grads)
+    f = lambda q, k, v: jax_chunked_attention(q, k, v, causal=causal, window=window,
+                                              q_block=32)
+    want = jax.vjp(f, qj, kj, vj)[1](jnp.asarray(to_numpy(only_dead)))
+    dv = only_dead.reshape(*do.shape[:2], hkv, -1, do.shape[-1]).sum(dim=(1, 3)) / keys
+    lse = kfl.plain_lse(q, k, causal=causal, window=window)
+    for grads in (kfl.plain_backward(q, k, v, o, only_dead, causal=causal, window=window),
+                  kfl.chunked_backward_reference(q, k, v, o, lse, only_dead, causal=causal,
+                                                 window=window)):
+        assert not bool(grads[0].any()) and not bool(grads[1].any())
+        torch.testing.assert_close(grads[2], dv[:, None].expand_as(v), rtol=1e-6, atol=1e-6)
+        for name, g, w in zip("qkv", grads, want):
+            np.testing.assert_allclose(to_numpy(g), np.asarray(w, np.float32), rtol=2e-5,
+                                       atol=2e-6, err_msg=f"d{name}")
 
 
 def _chip_smoke():
@@ -225,6 +241,142 @@ def test_flash_backward_cost_counts_the_allowed_pairs(case):
         assert c.flops == 8.0 * b * hq * dh * pairs
         size = q.element_size()
         assert c.bytes == 4 * q.numel() * size + 4 * k.numel() * size + 4 * b * hq * sq
+
+
+# ------------------------------------------- the one-pass kernel's work list
+# (B, Sq, Sk, Hq, Hkv, causal, window): the bf16 training shapes (chip_smoke.py's
+# TRAIN_FLASH_BACKWARD_CASES: granite-8b, hymba-1.5b's sliding layers, whisper-base's cross
+# attention) and the five FLASH_CASES
+SCHEDULE_CASES = {"granite": (2, 4096, 4096, 32, 8, True, 0),
+                  "hymba sliding": (2, 4096, 4096, 25, 5, True, 1024),
+                  "whisper cross": (1, 448, 1500, 8, 8, False, 0),
+                  **{i: (c[0], c[1], c[2], c[3], c[4], c[6], c[7]) for i, c in zip(_IDS, FLASH_CASES)}}
+H100_BLOCKS = 132   # one block an SM (flash_bwd_wgmma's shared memory holds one)
+
+
+def _read_schedule(sched):
+    """``backward_schedule``'s array as (reach, rows, turn of (item, tile))."""
+    blocks, width, nkb, nqt = (int(x) for x in sched[:4])
+    o = 4
+    reach = list(zip(sched[o:o + nkb], sched[o + nkb:o + 2 * nkb]))
+    o += 2 * nkb
+    table = sched[o:o + blocks * (width + 1)].reshape(blocks, width + 1)
+    rows = [[int(x) for x in r[1:1 + r[0]]] for r in table]
+    o += blocks * (width + 1)
+    n_items = sum(len(r) for r in rows)
+    offsets, turns = sched[o:o + n_items], sched[o + n_items:]
+    turn = {(item, t): int(turns[offsets[item] + t - reach[item % nkb][0]])
+            for item in range(n_items) for t in range(*reach[item % nkb])}
+    return reach, rows, turn
+
+
+def _simulate(b, hq, hkv, sched):
+    """The kernel's grid in unit steps: each block walks its row, an item a step for its
+    K/V load and then a step for each (query tile, head) of its reach; a step that adds a
+    dQ partial waits until the tile's flag counts its turn, and counts one more when it
+    ends. Returns (time, steps, waiting steps, each (batch, head, tile)'s writers in order);
+    raises if every unfinished block waits (a deadlock)."""
+    reach, rows, turn = _read_schedule(sched)
+    nkb, g = len(reach), hq // hkv
+    progs = []
+    for row in rows:
+        steps = []
+        for item in row:
+            grp, m = divmod(item, nkb)
+            bi, kvh = divmod(grp, hkv)
+            steps.append(None)
+            steps += [((bi, kvh * g + gi, t), turn[item, t], m)
+                      for t in range(*reach[m]) for gi in range(g)]
+        progs.append(steps)
+    flag, order, pos = {}, {}, [0] * len(progs)
+    time = waits = 0
+    while any(p < len(steps) for p, steps in zip(pos, progs)):
+        time += 1
+        done, moved = [], False
+        for j, steps in enumerate(progs):
+            if pos[j] == len(steps):
+                continue
+            step = steps[pos[j]]
+            if step is not None and flag.get(step[0], 0) != step[1]:
+                waits += 1
+                continue
+            pos[j] += 1
+            moved = True
+            if step is not None:
+                done.append(step)
+        if not moved:
+            raise AssertionError(f"deadlock at time {time}")
+        for tile, _, m in done:
+            flag[tile] = flag.get(tile, 0) + 1
+            order.setdefault(tile, []).append(m)
+    return time, sum(len(st) for st in progs), waits, order
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES), ids=str)
+def test_backward_plan_is_the_allowed_pairs(case):
+    """``backward_plan``: key block m reaches query tile t exactly when the mask allows a
+    pair of them (``_allowed``, block by block); each block's tiles and each tile's key
+    blocks are runs, and a tile that no block reaches holds only rows that allow no key."""
+    _, sq, sk, _, _, causal, window = SCHEDULE_CASES[case]
+    plan = kfl.backward_plan(sq, sk, causal, window)
+    ok = kfl._allowed(sq, sk, causal, window, "cpu").numpy()
+    kb, qt = kfl.KEY_BLOCK, kfl.QUERY_TILE
+    for m, (lo, hi) in enumerate(plan.reach):
+        for t, (wlo, whi) in enumerate(plan.writers):
+            meets = bool(ok[t * qt:(t + 1) * qt, m * kb:(m + 1) * kb].any())
+            assert meets == (lo <= t < hi) == (wlo <= m <= whi), (m, t)
+    for t, (wlo, whi) in enumerate(plan.writers):
+        if wlo > whi:
+            assert t * qt >= kfl.first_dead_row(sq, sk, window)
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES), ids=str)
+def test_backward_schedule_takes_every_pair_once_in_a_fixed_order_and_cannot_deadlock(case):
+    """``backward_schedule`` on the H100's grid (132 co-resident blocks, or one an item):
+    every (key block, query tile, head) pair that holds an allowed pair is one step of one
+    item, and every item is in one block's row; each (batch, head, query tile) takes its dQ
+    partials from its highest key block down, turn 0 first, and its last writer is the one
+    whose turn is the count less one; the simulated grid ends (on 132 blocks and on 3). No
+    item waits on a causal or windowed shape. On a non-causal one every key block reaches
+    every tile, so key block m waits for the ones above it: at most n_key_blocks - 1 - m
+    steps, the least a fixed order allows (the first writer's last tile has all the others
+    still to come)."""
+    b, sq, sk, hq, hkv, causal, window = SCHEDULE_CASES[case]
+    plan = kfl.backward_plan(sq, sk, causal, window)
+    nkb, g = len(plan.reach), hq // hkv
+    items = kfl.backward_items(b, hkv, plan)
+    assert sorted(items) == list(range(b * hkv * nkb))
+    ok = kfl._allowed(sq, sk, causal, window, "cpu").numpy()
+    kb, qt = kfl.KEY_BLOCK, kfl.QUERY_TILE
+    want = {(bi, kvh * g + gi, m, t) for bi in range(b) for kvh in range(hkv) for gi in range(g)
+            for m in range(nkb) for t in range(len(plan.writers))
+            if ok[t * qt:(t + 1) * qt, m * kb:(m + 1) * kb].any()}
+    for blocks in (min(len(items), H100_BLOCKS), 3):
+        sched = kfl.backward_schedule(b, sq, sk, hq, hkv, causal, window, blocks)
+        assert sched.dtype == np.int32
+        reach, rows, turn = _read_schedule(sched)
+        assert reach == plan.reach
+        writers = plan.writers
+        assert sorted(i for r in rows for i in r) == list(range(len(items)))
+        for r in rows:   # a block takes its items in the list's order
+            assert [items.index(i) for i in r] == sorted(items.index(i) for i in r)
+        steps = [((i // nkb) // hkv, (i // nkb) % hkv * g + gi, i % nkb, t)
+                 for r in rows for i in r for t in range(*reach[i % nkb]) for gi in range(g)]
+        assert len(steps) == len(set(steps)) and set(steps) == want
+        for (item, t), k in turn.items():
+            lo, hi = writers[t]
+            assert k == hi - item % nkb   # from the highest key block down
+        time, work, waits, order = _simulate(b, hq, hkv, sched)
+        assert set(order) == {(bi, h, t) for bi, h, _, t in want}
+        for (_, _, t), ms in order.items():
+            assert ms == list(range(writers[t][1], writers[t][0] - 1, -1))
+        if blocks == H100_BLOCKS or blocks == len(items):
+            if causal or window > 0:
+                assert waits == 0, (time, work, waits)
+            else:
+                assert waits <= b * hkv * nkb * (nkb - 1) // 2, (time, work, waits)
+            assert time <= work / blocks + max(
+                (hi - lo) * g + 1 for lo, hi in reach) + (0 if causal or window > 0 else nkb)
 
 
 # -------------------------------------------------------------------- rmsnorm
@@ -346,16 +498,20 @@ def test_backward_wrappers_refuse_cpu_tensors_and_return_meta_shapes():
 # ------------------------------------------------------------------ C entries
 def test_backward_entries_have_their_ctypes_signatures():
     """Each forward entry of flash has its backward entry of the same (dtype, head_dim)
-    split (10 pointers, 6 ints, the scale, causal, window, the stream), the forward
-    entries take the optional lse pointer, and rmsnorm's backward entries take 6
-    pointers, 3 ints, eps and the stream; all as ``_build.SIGNATURES`` gives them."""
+    split (14 pointers: the tensors, four workspaces and the work list; 6 ints, the scale,
+    causal, window, the columns a row without a key averages over, the grid's blocks, the
+    stream), the one-pass kernel's grid comes from
+    ``flash_attention_backward_resident_blocks(dh)``, the forward entries take the optional
+    lse pointer, and rmsnorm's backward entries take 6 pointers, 3 ints, eps and the
+    stream; all as ``_build.SIGNATURES`` gives them."""
     ctype = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
              "float": _build._F}
     P, I, F = _build._P, _build._I, _build._F
     want = {"flash_attention": {**{e: (P,) * 5 + (I,) * 6 + (F, I, I, P)
                                    for e in kfl._BACKWARD_ENTRY},
-                                **{e: (P,) * 10 + (I,) * 6 + (F, I, I, P)
-                                   for e in kfl._BACKWARD_ENTRY.values()}},
+                                **{e: (P,) * 14 + (I,) * 6 + (F, I, I, I, I, P)
+                                   for e in kfl._BACKWARD_ENTRY.values()},
+                                "flash_attention_backward_resident_blocks": (I,)},
             "rmsnorm": {**{e: (P, P, P, I, I, F, P) for e in krms._ENTRY.values()},
                         **{e: (P,) * 6 + (I,) * 3 + (F, P)
                            for e in krms._BACKWARD_ENTRY.values()}}}
@@ -371,14 +527,37 @@ def test_backward_entries_have_their_ctypes_signatures():
             assert got == types, entry
 
 
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES), ids=str)
+def test_one_pass_for_takes_the_one_pass_only_under_a_causal_sliding_window(case):
+    """``one_pass_for``, the one place that picks the bf16 tensor-core backward's route: the
+    one pass at head_dim 64 under a causal sliding window (hymba's sliding layers), the two
+    kernels everywhere else (granite's head_dim 128, whisper's cross attention, any causal
+    shape without a window); never for float32, where the CUDA-core kernel runs."""
+    _, _, _, _, _, causal, window = SCHEDULE_CASES[case]
+    for dh in (64, 128):
+        want = dh == 64 and causal and window > 0
+        assert kfl.one_pass_for(torch.bfloat16, dh, causal, window) is want
+        assert kfl.one_pass_for(torch.float32, dh, causal, window) is False
+    assert kfl.one_pass_for(torch.bfloat16, 64, *SCHEDULE_CASES["hymba sliding"][5:])
+    assert not kfl.one_pass_for(torch.bfloat16, 128, *SCHEDULE_CASES["granite"][5:])
+
+
 def test_the_backward_sources_name_their_kernels_and_hold_no_float_atomics():
-    """The wgmma backward entry dispatches head_dim 64 and 128 to the tensor-core
-    kernels and the others to the CUDA-core one; neither source adds with atomics (a
-    run repeats bitwise: ``chip_smoke.py`` phase 2 checks it on the card)."""
+    """The wgmma backward entry runs the one-pass tensor-core kernel at head_dim 64 when it
+    is handed the ordered dQ sums (``acc``; the wrapper alone chooses, by ``one_pass_for``,
+    and ``resident_blocks`` sizes that grid), else the two tensor-core kernels (dK/dV, then
+    dQ) at head_dim 64 or 128; the others go to the CUDA-core one; neither source adds with
+    atomics (a run repeats bitwise: ``chip_smoke.py`` phase 2 checks it on the card; the
+    one-pass kernel's dQ sums wait their turn on flags)."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    body = src[src.index('extern "C" int flash_attention_backward_bf16_wgmma('):]
-    body = body[:body.index("\n}\n")]
-    assert re.findall(r"wg::launch_backward<(\d+), \d>", body) == ["64", "128"]
+    assert kfl.WGMMA_HEAD_DIMS == (64, 128)
+    for entry, call, want in (
+            ("flash_attention_backward_bf16_wgmma", r"wg::launch_one_pass<(\d+)>\(", ["64"]),
+            ("flash_attention_backward_bf16_wgmma", r"wg::launch_two_kernels<(\d+)>\(", ["64", "128"]),
+            ("flash_attention_backward_resident_blocks", r"wg::resident_blocks<(\d+)>\(", ["64"])):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        assert re.findall(call, body) == want, entry
     for entry in ("flash_attention_backward_f32", "flash_attention_backward_bf16"):
         body = src[src.index(f'extern "C" int {entry}('):]
         assert "simt::launch_backward<" in body[:body.index("\n}\n")]
