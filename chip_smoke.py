@@ -14,13 +14,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      query heads over 4 KV heads and its 128-expert ``moe_gmm`` (D 4096, F 1536,
      top-8), and whisper-base's non-causal
      encoder and cross-attention, causal decoder self-attention, partly filled
-     self cache and all-valid cross cache), in bf16 and f32, with kernel, plain and library device
+     self cache and all-valid cross cache; flash's forward also on rows that allow no
+     key, against V's mean), in bf16 and f32, with kernel, plain and library device
      times (``Timer``) and the card's bound for the same work; and the four backward
      kernels against their plain formulas at the training micro-batch's shapes
      (``moe_gmm``'s at olmoe-1b-7b's and qwen3-moe's, with NaN past ``live``;
      ``ssd``'s at mamba2-130m's and hymba-1.5b's; flash attention's at granite-8b's,
      whisper-base's cross-attention and hymba-1.5b's window 1024 at G = 5, after the
-     forward's row logsumexp against a plain one; rmsnorm's at [2, 4096, 4096]), with
+     forward's row logsumexp against a plain one; rmsnorm's at [2, 4096, 4096] and at
+     [2, 4096, d] for the other training widths d), with
      ``torch.bmm``'s two products as ``moe_gmm``'s library and SDPA's and
      ``F.rms_norm``'s backward (``torch.autograd.grad`` on a saved graph) as flash's
      and rmsnorm's; flash's and rmsnorm's backward twice on the same inputs, bitwise
@@ -181,6 +183,9 @@ STATE_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 # buffer: 16 bytes a parameter) fits 60 GB of the card's 80, trained at TRAIN_4K's seq
 # 4096, global batch 8 in 4 micro-batches; (d) train_lm's crash and resume
 TRAIN_RMS_SHAPE = (2, 4096, 4096)
+# the rmsnorm backward at every training width: granite-8b's 4096, olmoe-1b-7b's 2048,
+# mamba2-130m's 768 and its gated norm's 1536, hymba-1.5b's 1600 and its mixer's 3200
+TRAIN_RMS_SHAPES = (TRAIN_RMS_SHAPE,) + tuple((2, 4096, d) for d in (768, 1536, 1600, 2048, 3200))
 TRAIN_FLASH_CASES = (("granite", 2, 4096, 4096, 32, 8, 128, True),
                      ("whisper cross", 1, 448, 1500, 8, 8, 64, False))
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
@@ -216,6 +221,11 @@ TRAIN_FLASH_BACKWARD_CASES = tuple(c + (0,) for c in TRAIN_FLASH_CASES) + (
 FLASH_BACKWARD_CHECK_CASES = (("no-key rows", 1, 600, 200, 8, 2, 128, True, 300),
                               ("no-key rows", 1, 600, 200, 8, 2, 64, True, 300),
                               ("ragged G=1", 1, 1000, 777, 4, 4, 64, True, 0))
+# flash's forward on those rows (ROADMAP C4): the no-key cases in bf16 (the tensor-core
+# kernel) and float32 (the CUDA-core one), and in bf16 at head_dim 96 (the CUDA-core one)
+FLASH_NO_KEY_CASES = tuple((c, dtn) for c in FLASH_BACKWARD_CHECK_CASES if c[0] == "no-key rows"
+                           for dtn in ("bfloat16", "float32")) + (
+    (("no-key rows", 1, 600, 200, 8, 2, 96, True, 300), "bfloat16"),)
 # calls of each phase 2 backward case on one input set, all bitwise equal (no float atomics;
 # the one-pass flash kernel's ordered dQ sums under contention); the last runs while another
 # stream keeps the card busy with BUSY_PASSES elementwise passes over BUSY_ELEMENTS bf16 (the
@@ -509,6 +519,7 @@ def phase_kernels(torch, timer: Timer):
                    "flash_attention", f"q[1,{sq},{hq},128] kv[1,{sq},{hkv},128] causal window={window}",
                    make, c.bytes, c.flops, dtn, dtn)
     rows.append(e_fl)
+    flash_no_key_rows(torch, rnd)
 
     # --- decode attention: B 4, S 1024, partly filled slots (-1 empty); granite (G = 4),
     # olmoe (G = 1), and a float32 q against the bf16 cache (a float32 model's batcher) ---
@@ -783,6 +794,34 @@ def phase_kernels(torch, timer: Timer):
     return rows
 
 
+def flash_no_key_rows(torch, rnd):
+    """ROADMAP C4 on the card: flash's forward at ``FLASH_NO_KEY_CASES``, the whole output
+    against ``plain`` under the forward's tolerance, the rows that allow no key (from
+    ``first_dead_row``) on their own against the mean of V over ``dead_row_keys(Sk)``
+    columns, and ``flash_attention`` twice and ``forward_with_lse`` once on the same inputs,
+    bitwise equal."""
+    from repro_torch.kernels import flash_attention as kfl
+
+    for (what, b, sq, sk, hq, hkv, dh, causal, window), dtn in FLASH_NO_KEY_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = rnd((b, sq, hq, dh), dt), rnd((b, sk, hkv, dh), dt), rnd((b, sk, hkv, dh), dt)
+        mask = dict(causal=causal, window=window)
+        out = kfl.flash_attention(q, k, v, **mask)
+        again, (with_lse, _) = kfl.flash_attention(q, k, v, **mask), kfl.forward_with_lse(q, k, v, **mask)
+        torch.cuda.synchronize()
+        case = (f"flash_attention forward {what} q[{b},{sq},{hq},{dh}] kv[{b},{sk},{hkv},{dh}] "
+                f"window={window} {dtn} [{kfl.kernel_for(dt, dh)}]")
+        _check(case, out, kfl.plain(q, k, v, **mask), dtn)
+        first, keys = kfl.first_dead_row(sq, sk, window), kfl.dead_row_keys(sk)
+        mean = (v.float().sum(dim=1) / keys).repeat_interleave(hq // hkv, dim=1)   # [B, Hq, dh]
+        _check(f"{case} rows {first}..{sq - 1} against V's mean over {keys} columns", out[:, first:],
+               mean[:, None].expand(-1, sq - first, -1, -1).to(dt), dtn)
+        same = bool(torch.equal(out, again)) and bool(torch.equal(out, with_lse))
+        log(f"[kernels] {case}: flash_attention twice and forward_with_lse bitwise equal {same}")
+        if not same:
+            raise AssertionError(f"{case}: calls differ")
+
+
 def backward_kernel_rows(torch, rnd, meta, record, routed, live_ragged):
     """Phase 2's rows of the backward kernels, each against its plain formula at the
     training micro-batch's shapes (``TRAIN_GMM_CASES``, ``TRAIN_SSD_CASES``) and at ragged
@@ -878,7 +917,7 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
     """Phase 2's rows of the flash attention and rmsnorm backward kernels, each against
     its ``plain_backward`` at the training shapes (``TRAIN_FLASH_BACKWARD_CASES``: granite's
     causal G = 4, whisper's non-causal cross, hymba's window 1024 at G = 5; and
-    ``TRAIN_RMS_SHAPE``), bf16 and float32, under ``GRAD_TOL``, and each gradient on its
+    ``TRAIN_RMS_SHAPES``, every training width), bf16 and float32, under ``GRAD_TOL``, and each gradient on its
     own against ``chunked_backward_reference`` under ``NEAR_TOL``; each call made
     ``BACKWARD_REPEATS`` times on its first input set must give bitwise-equal gradients (no
     float atomics; flash's dQ sums taken in a fixed order). Flash also runs
@@ -949,33 +988,35 @@ def attn_norm_backward_rows(torch, rnd, meta, record):
     e_rms = dict(name="rmsnorm_backward", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
                  replaces="src/repro/kernels/rmsnorm.py:25")
     lib_rms = getattr(F, "rms_norm", None)
-    shape = TRAIN_RMS_SHAPE
-    for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        repeat = []
+    for shape in TRAIN_RMS_SHAPES:
+        for dt, dtn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            repeat = []
 
-        def make(dt=dt, repeat=repeat):
-            x, sc, g = rnd(shape, dt), rnd(shape[-1:], dt), rnd(shape, dt)
-            if not repeat:
-                _repeats(torch, lambda: krms.backward(x, sc, g), repeat)
-                for n, a, w in zip(("dx", "dscale"), krms.backward(x, sc, g),
-                                   krms.chunked_backward_reference(x, sc, g)):
-                    _check_near(f"rmsnorm backward {n} {dtn} against chunked_backward_reference",
-                                a, w, dtn)
-            lib = None
-            if lib_rms is not None:
-                leaves = [x.detach().requires_grad_(True), sc.detach().requires_grad_(True)]
-                out = lib_rms(leaves[0], (shape[-1],), leaves[1], 1e-5)
-                lib = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
-            return (lambda: krms.backward(x, sc, g), lambda: krms.plain_backward(x, sc, g), lib)
+            def make(shape=shape, dt=dt, dtn=dtn, repeat=repeat):
+                x, sc, g = rnd(shape, dt), rnd(shape[-1:], dt), rnd(shape, dt)
+                if not repeat:
+                    _repeats(torch, lambda: krms.backward(x, sc, g), repeat)
+                    for n, a, w in zip(("dx", "dscale"), krms.backward(x, sc, g),
+                                       krms.chunked_backward_reference(x, sc, g)):
+                        _check_near(f"rmsnorm backward x{list(shape)} {n} {dtn} against "
+                                    "chunked_backward_reference", a, w, dtn)
+                lib = None
+                if lib_rms is not None:
+                    leaves = [x.detach().requires_grad_(True), sc.detach().requires_grad_(True)]
+                    out = lib_rms(leaves[0], (shape[-1],), leaves[1], 1e-5)
+                    lib = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+                return (lambda: krms.backward(x, sc, g), lambda: krms.plain_backward(x, sc, g), lib)
 
-        c = krms.backward_cost(meta(shape, dt), meta(shape[-1:], dt))
-        case = f"x[{','.join(map(str, shape))}] blocks={krms.backward_blocks(math.prod(shape[:-1]))}"
-        # the statistics and sums are float32 arithmetic
-        record(e_rms, dtn == "bfloat16", "rmsnorm backward", case, make, c.bytes, c.flops, dtn,
-               "float32", tol=GRAD_TOL[dtn])
-        if not repeat[0]:
-            raise AssertionError(f"rmsnorm backward {case} {dtn}: runs differ")
-        log(f"[kernels] rmsnorm backward {case} {dtn}: {BACKWARD_REPEATS} runs bitwise equal")
+            c = krms.backward_cost(meta(shape, dt), meta(shape[-1:], dt))
+            plan = krms.backward_plan(math.prod(shape[:-1]), shape[-1], torch.empty((), dtype=dt).element_size())
+            case = (f"x[{','.join(map(str, shape))}] {plan.blocks} blocks of {plan.rows_per_block} rows, "
+                    f"{plan.teams} rows a step of {plan.team} threads x {plan.vectors} units")
+            # the statistics and sums are float32 arithmetic
+            record(e_rms, dtn == "bfloat16" and shape == TRAIN_RMS_SHAPE, "rmsnorm backward", case, make,
+                   c.bytes, c.flops, dtn, "float32", tol=GRAD_TOL[dtn])
+            if not repeat[0]:
+                raise AssertionError(f"rmsnorm backward {case} {dtn}: runs differ")
+            log(f"[kernels] rmsnorm backward {case} {dtn}: {BACKWARD_REPEATS} runs bitwise equal")
     torch.cuda.empty_cache()
     return [e_rms, e_fl]
 
@@ -1115,15 +1156,15 @@ def flash_backward_passes(torch):
 
 def rmsnorm_backward_passes(torch):
     """The rmsnorm backward kernel's device ms by launch (rows, scale), bf16, at
-    ``TRAIN_RMS_SHAPE``, from the profiler's events."""
+    ``TRAIN_RMS_SHAPES``, from the profiler's events."""
     from repro_torch.kernels import rmsnorm as krms
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    shape = TRAIN_RMS_SHAPE
-    x, scale, g = rnd(shape), rnd(shape[-1:]), rnd(shape)
-    _log_passes(f"rmsnorm backward passes, x{list(shape)} bf16",
-                kernel_device_ms(torch, 10, lambda: krms.backward(x, scale, g)))
+    for shape in TRAIN_RMS_SHAPES:
+        x, scale, g = rnd(shape), rnd(shape[-1:]), rnd(shape)
+        _log_passes(f"rmsnorm backward passes, x{list(shape)} bf16",
+                    kernel_device_ms(torch, 10, lambda: krms.backward(x, scale, g)))
 
 
 def _log_passes(what: str, by_name: dict) -> None:

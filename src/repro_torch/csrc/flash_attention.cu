@@ -59,6 +59,12 @@
 // null they write each row's logsumexp of its scaled scores (natural units), -inf
 // for a row that allows no key (Sq > Sk + window - 1), for the backward. A null
 // `lse` writes nothing, so serving launches exactly what it did without it.
+// A row that allows no key is, in the plain version and the reference's chunked_attention,
+// the mean of V over Sk and the zero columns that pad it to the KV block (every score of
+// the row is masked alike; kernels/flash_attention.py:dead_row_keys): for shapes with such
+// rows, and only for them, flash_fwd_dead first sums V by (batch, KV head) in a fixed order,
+// and both kernels write that mean for every row whose running max never left kNegInf
+// (ROADMAP C4). The TPU kernel instead averages over the KV blocks it visits, or gives 0.
 //
 // The backward (flash_attention_backward_*; the TPU kernel has none: XLA
 // differentiates repro/models/attention.py:chunked_attention), the formula of
@@ -69,7 +75,7 @@
 // columns that pad Sk to its KV block: flash_bwd_dead, launched only for such shapes, sums
 // the G heads' such rows of dO in a fixed order into a float32 [B, Hkv, dh] vector (divided
 // by that count, `dead_keys`) that every dK/dV epilogue adds to dV, and writes their dq = 0
-// (ROADMAP C3; the forward kernels do not give that mean yet, C4). Bound on the H100: operations (dV, dP, dQ, dK: 8 * dh flops
+// (ROADMAP C3; the forward kernels give that mean, C4). Bound on the H100: operations (dV, dP, dQ, dK: 8 * dh flops
 // a head and allowed pair).
 //
 // The bf16 backward at head_dim 64 and 128 runs on the tensor cores by one of two routes; the
@@ -168,6 +174,34 @@ int launch_dead(const void* dout, void* dead_dv, void* dq, int b, int sq, int sk
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward's side of the same rows: one block a (batch, KV head) sums V over the Sk
+// positions in order, a thread a column, into dead_v [B, Hkv, dh] (float32, divided by
+// `keys`), which both forward kernels write, rounded to the output's dtype, for every row
+// whose running max never left kNegInf (the rows whose lse is -inf).
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_fwd_dead(const T* __restrict__ v, float* __restrict__ dead_v, int sk, int keys, int hkv, int dh) {
+  const int bb = blockIdx.x / hkv, kvh = blockIdx.x % hkv;
+  for (int d = threadIdx.x; d < dh; d += 128) {
+    float sum = 0.f;
+    for (int j = 0; j < sk; ++j) sum += to_float(v[((static_cast<int64_t>(bb) * sk + j) * hkv + kvh) * dh + d]);
+    dead_v[(static_cast<int64_t>(bb) * hkv + kvh) * dh + d] = sum / keys;
+  }
+}
+
+// Launched only for shapes with rows that allow no key; null `dead_v` elsewhere.
+template <typename T>
+int launch_fwd_dead(const void* v, void* dead_v, int b, int sq, int sk, int hkv, int dh, int window,
+                    int keys, cudaStream_t st, const float** dead_out) {
+  *dead_out = nullptr;
+  if (!(window > 0 && sq > sk + window - 1) || b == 0 || sk == 0) return 0;
+  if (dead_v == nullptr || keys < sk) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_dead<T><<<b * hkv, 128, 0, st>>>(static_cast<const T*>(v), static_cast<float*>(dead_v), sk,
+                                             keys, hkv, dh);
+  *dead_out = static_cast<const float*>(dead_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // 1. bf16 on the tensor cores (wgmma), head_dim 64 or 128
 // ---------------------------------------------------------------------------
@@ -247,8 +281,8 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ lse, int sq, int sk, int hq, int hkv, float scale, int causal,
-                   int window) {
+                   float* __restrict__ lse, const float* __restrict__ dead_v, int sq, int sk, int hq,
+                   int hkv, float scale, int causal, int window) {
   using L = Layout<DH>;
   constexpr int kNB = DH / 64;  // 64-wide column blocks of dh
   extern __shared__ uint8_t smem_raw[];
@@ -385,9 +419,13 @@ flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   cp_async_wait<0>();
   __syncthreads();
 
-  // epilogue: O / l in bf16 into the Q tile's space (same swizzle), then 16-byte rows out
+  // epilogue: O / l in bf16 into the Q tile's space (same swizzle), then 16-byte rows out; a
+  // row that allows no key (m never left kNegInf) takes dead_v, V's mean (flash_fwd_dead)
+  const float* dead = dead_v != nullptr ? dead_v + (static_cast<int64_t>(b) * hkv + kvh) * DH : nullptr;
+  bool no_key[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    no_key[r] = dead != nullptr && m[r] == kNegInf;
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + 8 * r;
@@ -404,8 +442,9 @@ flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       const int r = wgi * 64 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
       const int c = 8 * (i / 4) + 2 * (lane % 4);  // column within the 64-wide block n
       const float inv = l[(i / 2) % 2];
+      const bool nk = no_key[(i / 2) % 2];
       *reinterpret_cast<uint32_t*>(smem + swz(r, n * 8 + c / 8, kBM) + (c % 8) * 2) =
-          pack_bf16(o[n][i] * inv, o[n][i + 1] * inv);
+          pack_bf16(nk ? dead[n * 64 + c] : o[n][i] * inv, nk ? dead[n * 64 + c + 1] : o[n][i + 1] * inv);
     }
   __syncthreads();
   constexpr int kChunks = DH / 8;
@@ -420,8 +459,8 @@ flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int sq, int sk,
-           int hq, int hkv, float scale, int causal, int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const float* dead_v, int b,
+           int sq, int sk, int hq, int hkv, float scale, int causal, int window, void* stream) {
   const int bytes = Layout<DH>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_kernel_wgmma<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -431,7 +470,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
     flash_kernel_wgmma<DH><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(lse), sq, sk, hq, hkv, scale, causal, window);
+        static_cast<float*>(lse), dead_v, sq, sk, hq, hkv, scale, causal, window);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1465,8 +1504,8 @@ __device__ __forceinline__ float group_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int hkv, int g,
-                  int dh, float scale, int causal, int window) {
+                  T* __restrict__ out, float* __restrict__ lse, const float* __restrict__ dead_v,
+                  int sq, int sk, int hkv, int g, int dh, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qs = smem;                       // [kRows][kStride]
   float* ks = qs + kRows * kStride;       // [kTile][kStride]
@@ -1599,17 +1638,20 @@ flash_kernel_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
     T* orow = out + ((static_cast<int64_t>(b) * sq + qpos) * hq + h * g + gi) * dh;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // a row that allows no key: V's mean (flash_fwd_dead)
+    const float* dead = dead_v != nullptr && m[i] == kNegInf
+                            ? dead_v + (static_cast<int64_t>(b) * hkv + h) * dh : nullptr;
 #pragma unroll
     for (int j = 0; j < kDhPerThread; ++j) {
       const int c = cx + j * kColGroups;
-      if (c < dh) from_float(acc[i][j] * inv, &orow[c]);
+      if (c < dh) from_float(dead != nullptr ? dead[c] : acc[i][j] * inv, &orow[c]);
     }
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int sq,
-           int sk, int hq, int hkv, int dh, float scale, int causal, int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const float* dead_v, int b,
+           int sq, int sk, int hq, int hkv, int dh, float scale, int causal, int window, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kRows || dh <= 0 || dh > kMaxDh) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1623,7 +1665,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
     dim3 grid((sq + qt - 1) / qt, hkv, b);
     flash_kernel_simt<T><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), static_cast<float*>(lse), sq, sk, hkv, g, dh, scale, causal, window);
+        static_cast<T*>(out), static_cast<float*>(lse), dead_v, sq, sk, hkv, g, dh, scale, causal,
+        window);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1861,29 +1904,47 @@ int launch_delta(const void* o, const void* dout, void* delta, int b, int sq, in
 }  // namespace
 
 // The forward entries: `lse` (float32 [B, Hq, Sq]) may be null, and then nothing is written
-// but `out`.
+// but `out`. `dead_v` (float32 [B, Hkv, dh]) is written and read only for shapes with rows
+// that allow no key (window > 0 and Sq > Sk + window - 1): each such row is V's mean over
+// `dead_keys` columns (kernels/flash_attention.py:dead_row_keys), and flash_fwd_dead runs
+// first; other shapes launch the forward kernel alone.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   void* lse, int b, int sq, int sk, int hq, int hkv, int dh,
-                                   float scale, int causal, int window, void* stream) {
-  return simt::launch<float>(q, k, v, out, lse, b, sq, sk, hq, hkv, dh, scale, causal, window,
+                                   void* lse, void* dead_v, int b, int sq, int sk, int hq, int hkv,
+                                   int dh, float scale, int causal, int window, int dead_keys,
+                                   void* stream) {
+  const float* dead = nullptr;
+  const int err = launch_fwd_dead<float>(v, dead_v, b, sq, sk, hkv, dh, window, dead_keys,
+                                         static_cast<cudaStream_t>(stream), &dead);
+  if (err != 0) return err;
+  return simt::launch<float>(q, k, v, out, lse, dead, b, sq, sk, hq, hkv, dh, scale, causal, window,
                              stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    void* lse, int b, int sq, int sk, int hq, int hkv, int dh,
-                                    float scale, int causal, int window, void* stream) {
-  return simt::launch<__nv_bfloat16>(q, k, v, out, lse, b, sq, sk, hq, hkv, dh, scale, causal,
+                                    void* lse, void* dead_v, int b, int sq, int sk, int hq, int hkv,
+                                    int dh, float scale, int causal, int window, int dead_keys,
+                                    void* stream) {
+  const float* dead = nullptr;
+  const int err = launch_fwd_dead<__nv_bfloat16>(v, dead_v, b, sq, sk, hkv, dh, window, dead_keys,
+                                                 static_cast<cudaStream_t>(stream), &dead);
+  if (err != 0) return err;
+  return simt::launch<__nv_bfloat16>(q, k, v, out, lse, dead, b, sq, sk, hq, hkv, dh, scale, causal,
                                      window, stream);
 }
 
 // bf16 on the tensor cores: head_dim 64 or 128, any Hq % Hkv == 0, and q, k, v and
 // out 16-byte aligned (the wrapper checks).
 extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
-                                          void* lse, int b, int sq, int sk, int hq, int hkv, int dh,
-                                          float scale, int causal, int window, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dh == 64) return wg::launch<64>(q, k, v, out, lse, b, sq, sk, hq, hkv, scale, causal, window, stream);
-  if (dh == 128) return wg::launch<128>(q, k, v, out, lse, b, sq, sk, hq, hkv, scale, causal, window, stream);
+                                          void* lse, void* dead_v, int b, int sq, int sk, int hq,
+                                          int hkv, int dh, float scale, int causal, int window,
+                                          int dead_keys, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || (dh != 64 && dh != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* dead = nullptr;
+  const int err = launch_fwd_dead<__nv_bfloat16>(v, dead_v, b, sq, sk, hkv, dh, window, dead_keys,
+                                                 static_cast<cudaStream_t>(stream), &dead);
+  if (err != 0) return err;
+  if (dh == 64) return wg::launch<64>(q, k, v, out, lse, dead, b, sq, sk, hq, hkv, scale, causal, window, stream);
+  if (dh == 128) return wg::launch<128>(q, k, v, out, lse, dead, b, sq, sk, hq, hkv, scale, causal, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -33,9 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, lse (float32 [B, Hq, Sq] or null), b, sq, sk, hq, hkv, dh, scale, causal,
-# window, stream
-_FLASH = (_P,) * 5 + (_I,) * 6 + (_F, _I, _I, _P)
+# q, k, v, out, lse (float32 [B, Hq, Sq] or null), V's mean for the rows that allow no key
+# (float32 [B, Hkv, dh] or null), b, sq, sk, hq, hkv, dh, scale, causal, window, the columns
+# such a row averages over, stream
+_FLASH = (_P,) * 6 + (_I,) * 6 + (_F, _I, _I, _I, _P)
 # the backward: q, k, v, out, lse, dout, dq, dk, dv, workspaces (ws: D and the lse; acc: the
 # ordered dQ sums; flags; dead_dv: the rows that allow no key), the work list, b, sq, sk, hq,
 # hkv, dh, scale, causal, window, the columns a row without a key averages over, the grid's
@@ -51,9 +52,10 @@ SIGNATURES = {
         "rmsnorm_f32": (_P, _P, _P, _I, _I, _F, _P),
         "rmsnorm_bf16": (_P, _P, _P, _I, _I, _F, _P),
         # the backward: x, scale, g, dx, dscale, a float32 workspace [blocks, d], rows, d,
-        # blocks, eps, stream
-        "rmsnorm_backward_f32": (_P,) * 6 + (_I,) * 3 + (_F, _P),
-        "rmsnorm_backward_bf16": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+        # the plan (rmsnorm.backward_plan: unit, vectors, team, teams, rows_per_block,
+        # blocks), eps, stream
+        "rmsnorm_backward_f32": (_P,) * 6 + (_I,) * 8 + (_F, _P),
+        "rmsnorm_backward_bf16": (_P,) * 6 + (_I,) * 8 + (_F, _P),
     },
     "decode_attention": {
         "decode_attention_f32": _DECODE,

@@ -122,10 +122,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wi
     sk, hkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else dh**-0.5)
     out = torch.empty_like(q)
+    # rows that allow no key take V's mean over dead_row_keys(Sk) columns, as in ``plain``
+    dead = (torch.empty((b, hkv, dh), dtype=torch.float32, device=q.device)
+            if first_dead_row(sq, sk, window) < sq else None)
     fn = getattr(_build.library("flash_attention"), entry)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, dh, scale,
-                    int(bool(causal)), int(window), _build.stream(q.device)), "flash_attention")
+                    None if lse is None else lse.data_ptr(),
+                    None if dead is None else dead.data_ptr(), b, sq, sk, hq, hkv, dh, scale,
+                    int(bool(causal)), int(window), dead_row_keys(sk) if dead is not None and sk else 0,
+                    _build.stream(q.device)),
+                 "flash_attention")
     launches += 1
     return out
 

@@ -11,7 +11,10 @@ and on ``meta`` tensors returns empty outputs of the gradients' shapes; the wrap
 refuse CPU tensors; the C entries have their ctypes signatures. ``chip_smoke.py``'s
 check of each kernel gradient against its chunked reference takes a rounding flip and
 refuses a dropped or mis-scaled tile; a row that allows no key passes the reference's
-gradient (ROADMAP C3, repaired). The one-pass kernel's work list (``backward_plan``,
+gradient (ROADMAP C3, repaired), and the TPU kernel averages such a row over the blocks it
+visits, where the reference and the port take the mean over every key (C4). The rmsnorm
+backward's partition (``backward_plan``) takes every row once and fills every thread at the
+training widths. The one-pass kernel's work list (``backward_plan``,
 ``backward_schedule``) is simulated: every pair once, a fixed order, no deadlock. The
 launches run only on the card (``chip_smoke.py`` phases 2 and 6). Inputs come from numpy
 seeds.
@@ -185,6 +188,39 @@ def test_a_row_that_allows_no_key_averages_v_but_passes_no_gradient_back(case):
         for name, g, w in zip("qkv", grads, want):
             np.testing.assert_allclose(to_numpy(g), np.asarray(w, np.float32), rtol=2e-5,
                                        atol=2e-6, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", NO_KEY_CASES, ids=[_IDS[3], _IDS[4], "sq560-sk520-w16"])
+def test_the_pallas_kernel_averages_a_row_without_a_key_over_the_blocks_it_visits(case):
+    """A fault of the reference that the port does not copy (ROADMAP C, C4): on a row that
+    allows no key the TPU kernel (``repro.kernels.flash_attention``, in interpret mode at its
+    default 128-position blocks) averages V over the KV blocks it visits, zero padding
+    included (it skips a masked block with ``pl.when`` and scores a visited one's masked
+    columns alike), and gives 0 where it visits none; the reference model's
+    ``chunked_attention``, and the port's ``plain`` with it (and the port's forward kernels on
+    the card, ``chip_smoke.py`` phase 2), take the mean over ``dead_row_keys(Sk)`` columns.
+    The two agree on every other row."""
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+
+    b, sq, sk, hq, hkv, dh, causal, window = case
+    (qj, q), (kj, k), (vj, v), _ = _flash_inputs(case, "float32", seed=6)
+    got = np.asarray(pallas_flash(qj, kj, vj, causal=causal, window=window, interpret=True))
+    ref = np.asarray(jax_chunked_attention(qj, kj, vj, causal=causal, window=window))
+    np.testing.assert_allclose(to_numpy(kfl.plain(q, k, v, causal=causal, window=window)), ref,
+                               rtol=1e-5, atol=1e-5)
+    first = kfl.first_dead_row(sq, sk, window)
+    np.testing.assert_allclose(got[:, :first], ref[:, :first], **_tol("float32"))
+    qb, kb = min(128, sq), min(128, sk)   # the Pallas kernel's blocks at its defaults
+    vpad = np.concatenate([to_numpy(v), np.zeros((b, (-sk) % kb, hkv, dh), np.float32)], axis=1)
+    for i in range(first, sq):
+        q0 = i // qb * qb
+        seen = [j for j in range(0, sk, kb) if (not causal or j <= q0 + qb - 1)
+                and q0 - (j + kb - 1) < window]
+        want = (sum(vpad[:, j:j + kb].sum(axis=1) for j in seen) / (kb * len(seen)) if seen
+                else np.zeros((b, hkv, dh), np.float32))
+        np.testing.assert_allclose(got[:, i], np.repeat(want, hq // hkv, axis=1), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"row {i}")
+    assert np.abs(got[:, first:] - ref[:, first:]).max() > 0.05
 
 
 def _chip_smoke():
@@ -380,14 +416,18 @@ def test_backward_schedule_takes_every_pair_once_in_a_fixed_order_and_cannot_dea
 
 
 # -------------------------------------------------------------------- rmsnorm
-RMS_SHAPES = [(4, 128), (2, 37, 64), (3, 5, 7, 32), (600, 24)]   # 600 rows: past 528 blocks
+# the training widths at a few rows (mamba2's 768, hymba's 1600 and 3200), and rows past
+# BACKWARD_BLOCKS (600 and 270: two and three rows a block)
+RMS_SHAPES = [(4, 128), (2, 37, 64), (3, 5, 7, 32), (600, 24), (3, 768), (2, 5, 1600), (4, 3200),
+              (270, 64)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", RMS_SHAPES)
 def test_rmsnorm_chunked_backward_reference_matches_reference_vjp(shape, dtype):
-    """The kernel's two passes (dx and each block's column sums, then the blocks'
-    sums in order) give ``jax.vjp``'s gradients; dscale relative to its largest entry."""
+    """The kernel's two passes under ``backward_plan`` (dx, each team's column sums over its
+    rows and the block's teams in order, then the blocks' sums in a fixed tree) give
+    ``jax.vjp``'s gradients; dscale relative to its largest entry."""
     rng = np.random.default_rng(1)
     (xj, xt), (sj, st), (gj, gt) = (_pair(rng, s, dtype) for s in (shape, shape[-1:], shape))
     _, vjp = jax.vjp(lambda x, s: jax_layers.rms_norm(x, s, 1e-5), xj, sj)
@@ -400,14 +440,55 @@ def test_rmsnorm_chunked_backward_reference_matches_reference_vjp(shape, dtype):
     np.testing.assert_allclose(to_numpy(ds) / top, ds_want / top, **_tol(dtype))
 
 
-@pytest.mark.parametrize("rows", [1, 5, 528, 529, 2000])
+@pytest.mark.parametrize("rows", [1, 5, 264, 265, 528, 529, 2000, 8192])
 def test_rmsnorm_backward_blocks_take_every_row_once(rows):
-    """The first pass's blocks: at most ``BACKWARD_BLOCKS``, none idle, a function of
-    the rows alone; block b's rows b, b + blocks, ... cover each row once."""
-    blocks = krms.backward_blocks(rows)
-    assert 1 <= blocks <= min(rows, krms.BACKWARD_BLOCKS)
-    seen = sorted(r for b in range(blocks) for r in range(b, rows, blocks))
-    assert seen == list(range(rows))
+    """The rows pass's blocks: at most ``BACKWARD_BLOCKS`` (half as many where a thread holds
+    more than ``HELD`` elements), none empty, each a run of ``rows_per_block`` contiguous rows
+    (the last perhaps fewer) that together cover every row once; a function of the shape
+    alone (not of the rows' alignment), and the plan's steps take each of a block's rows
+    once."""
+    for d, es in ((768, 2), (1600, 2), (4096, 4), (37, 2)):
+        plans = {krms.backward_plan(rows, d, es, aligned) for aligned in (True, False)}
+        assert len({p[4:] for p in plans}) == 1
+        for plan in plans:
+            per, blocks = plan.rows_per_block, plan.blocks
+            held = krms.backward_plan(rows, d, es).vectors * krms.backward_plan(rows, d, es).unit
+            cap = krms.BACKWARD_BLOCKS if held <= krms.HELD else krms.BACKWARD_BLOCKS // 2
+            assert blocks == krms.backward_blocks(rows, d, es) and 1 <= blocks <= min(rows, cap)
+            runs = [range(b * per, min(rows, (b + 1) * per)) for b in range(blocks)]
+            assert all(len(r) > 0 for r in runs)
+            assert sorted(i for r in runs for i in r) == list(range(rows))
+            steps = -(-per // plan.teams)
+            taken = sorted(k * plan.teams + t for k in range(steps) for t in range(plan.teams)
+                           if k * plan.teams + t < per)
+            assert taken == list(range(per))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [768, 1536, 1600, 2048, 3200, 4096])
+def test_rmsnorm_backward_plan_fills_every_thread_at_the_training_widths(d, dtype):
+    """At every training width each thread of a row's team holds the same number of 16-byte
+    units and none idles (team x units x unit = D); a team is whole groups of 8 lanes, a
+    block whole groups of 8 of at most ``BACKWARD_THREADS``, its teams' column sums within the
+    shared memory it may use; the split has the most threads a block of those that hold at
+    most ``MAX_HELD`` elements a thread, and holds at most ``HELD`` where such a split has as
+    many threads. Rows that are not 16-byte aligned take single elements."""
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = krms.backward_plan(8192, d, es)
+    assert plan.unit == 16 // es and plan.team * plan.vectors * plan.unit == d
+    assert plan.vectors in krms.VECTORS[True] and plan.team % 8 == 0
+    threads = plan.team * plan.teams
+    assert threads % 8 == 0 and threads <= krms.BACKWARD_THREADS
+    assert 4 * plan.teams * d <= krms.SMEM_BYTES
+    splits = [(v, plan.unit * v, (d // plan.unit // v) * krms._teams(d // plan.unit // v))
+              for v in krms.VECTORS[True] if (d // plan.unit) % v == 0
+              and (d // plan.unit // v) % 8 == 0 and krms._teams(d // plan.unit // v)]
+    most = max(t for _, held, t in splits if held <= krms.MAX_HELD)
+    assert threads == most and plan.vectors * plan.unit <= krms.MAX_HELD
+    if any(t == most and held <= krms.HELD for _, held, t in splits):
+        assert plan.vectors * plan.unit <= krms.HELD
+    odd = krms.backward_plan(8192, d, es, aligned=False)
+    assert odd.unit == 1 and odd.team * odd.vectors >= d and odd.vectors in krms.VECTORS[False]
 
 
 def test_rmsnorm_backward_cost_is_its_formula():
@@ -502,18 +583,19 @@ def test_backward_entries_have_their_ctypes_signatures():
     causal, window, the columns a row without a key averages over, the grid's blocks, the
     stream), the one-pass kernel's grid comes from
     ``flash_attention_backward_resident_blocks(dh)``, the forward entries take the optional
-    lse pointer, and rmsnorm's backward entries take 6 pointers, 3 ints, eps and the
-    stream; all as ``_build.SIGNATURES`` gives them."""
+    lse pointer and V's mean for the rows that allow no key (with the count of columns it
+    averages over), and rmsnorm's backward entries take 6 pointers, 8 ints (rows, d and the
+    plan), eps and the stream; all as ``_build.SIGNATURES`` gives them."""
     ctype = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
              "float": _build._F}
     P, I, F = _build._P, _build._I, _build._F
-    want = {"flash_attention": {**{e: (P,) * 5 + (I,) * 6 + (F, I, I, P)
+    want = {"flash_attention": {**{e: (P,) * 6 + (I,) * 6 + (F, I, I, I, P)
                                    for e in kfl._BACKWARD_ENTRY},
                                 **{e: (P,) * 14 + (I,) * 6 + (F, I, I, I, I, P)
                                    for e in kfl._BACKWARD_ENTRY.values()},
                                 "flash_attention_backward_resident_blocks": (I,)},
             "rmsnorm": {**{e: (P, P, P, I, I, F, P) for e in krms._ENTRY.values()},
-                        **{e: (P,) * 6 + (I,) * 3 + (F, P)
+                        **{e: (P,) * 6 + (I,) * 8 + (F, P)
                            for e in krms._BACKWARD_ENTRY.values()}}}
     assert set(kfl._BACKWARD_ENTRY) == {"flash_attention_f32", "flash_attention_bf16",
                                         "flash_attention_bf16_wgmma"}
