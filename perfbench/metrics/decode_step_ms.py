@@ -1,0 +1,7 @@
+"""``decode_step_ms.<serve|batch>``: the mean host time of a ``decode_step`` call up to
+the device's synchronize (the benchmark's span), in ms."""
+
+
+def read(name, record):
+    spans = record.spans.get("decode_step")
+    return 1e3 * sum(e - s for s, e in spans) / len(spans) if spans else None
