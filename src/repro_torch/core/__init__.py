@@ -6,7 +6,9 @@ platform communication functions, with all/each/key edge fan-out.
 Execution system (SS5-6): memory contexts, dispatcher, compute/comm
 engines, PI control plane, cold-start backends, cluster manager.
 
-Counterpart of ``repro.core``: the same names.
+Counterpart of ``repro.core``: the same names, less the exporters that only
+the reference's own benchmarks read (``ThroughputStats``, and in
+``core.tracing`` ``StreamingPercentile`` and ``LiveTelemetry``).
 """
 from repro_torch.core.artifacts import (
     Artifact,
@@ -56,7 +58,6 @@ from repro_torch.core.tracing import (
     LinkCounters,
     NodeCounters,
     RoutingStats,
-    ThroughputStats,
     TransferStats,
 )
 from repro_torch.core.workloads import BatchStepModel, WeightStore
@@ -101,7 +102,6 @@ __all__ = [
     "PredictorConfig",
     "PrefetchConfig",
     "RoutingStats",
-    "ThroughputStats",
     "SanitizationError",
     "ServiceRegistry",
     "SetDict",

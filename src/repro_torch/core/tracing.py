@@ -1,13 +1,37 @@
-"""Latency / memory instrumentation shared by benchmarks and tests."""
+"""Latency / memory instrumentation shared by benchmarks and tests, and the port's
+spans on the profiler's clock.
+
+Spans (the end of this file). ``span("<layer>.<stage>")`` opens the host range
+``repro_torch.<layer>.<stage>`` in the torch profiler, at function scope: on the
+trace's own clock, nested in the enclosing span of its thread, with no event on the
+device's timeline. ``span(name, device=True)`` also times the stage on the device: a
+CUDA event pair on the current stream (none while a CUDA graph is being captured),
+added to ``device_seconds()[name]`` once the end has completed, with no
+synchronisation (pairs wait, a bounded number, until they are read); the stream's time
+between the two, idle time inside included. With no card it counts host seconds.
+``stages()`` runs adjacent stages as such spans, one event between two stages, and
+under autograd times each stage's backward as ``<name>.backward``. While tracing is on,
+each pass of Python's collector is the span ``repro_torch.python.gc``.
+
+Tracing is on exactly while a ``torch.profiler.profile`` records: there is no other
+switch. Off, a span costs one flag check. To trace a run, record it with any torch
+profiler (``export_chrome_trace`` lays the spans beside the kernels) and read
+``device_seconds()`` for each device-timed stage. Tracing changes no result.
+"""
 from __future__ import annotations
 
-import json
-import os
-import sys
+import collections
+import contextlib
+import gc
+import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict, IO, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -53,168 +77,6 @@ class LatencyStats:
             "p95_ms": self.p95 * 1e3,
             "p99_ms": self.p99 * 1e3,
             "rel_var_pct": self.relative_variance,
-        }
-
-
-class StreamingPercentile:
-    """O(1)-memory single-quantile estimator (the P² algorithm of Jain &
-    Chlamtac): five markers track the running quantile without retaining
-    samples, so trace-scale runs can publish live percentiles without the
-    O(n) sample lists ``LatencyStats`` keeps.
-
-    Deterministic: the estimate is a pure function of the sample
-    sequence. Exact while ``n <= 5``; afterwards a parabolic
-    interpolation whose error tests/test_perf_identity.py bounds against
-    ``np.percentile`` on the distributions the benchmarks draw."""
-
-    __slots__ = ("p", "n", "_q", "_pos", "_want")
-
-    def __init__(self, p: float):
-        if not 0.0 < p < 100.0:
-            raise ValueError("percentile must be in (0, 100)")
-        self.p = p
-        self.n = 0
-        self._q: List[float] = []            # marker heights
-        self._pos: List[float] = []          # marker positions (1-based)
-        self._want: List[float] = []         # desired positions
-
-    def add(self, x: float) -> None:
-        q, n = self._q, self.n
-        self.n = n + 1
-        if n < 5:
-            q.append(x)
-            q.sort()
-            if self.n == 5:
-                p = self.p / 100.0
-                self._pos = [1.0, 2.0, 3.0, 4.0, 5.0]
-                self._want = [1.0, 1 + 2 * p, 1 + 4 * p, 3 + 2 * p, 5.0]
-            return
-        pos, want = self._pos, self._want
-        # which cell the new sample lands in; extremes clamp markers
-        if x < q[0]:
-            q[0] = x
-            k = 0
-        elif x >= q[4]:
-            q[4] = x
-            k = 3
-        else:
-            k = next(i for i in range(4) if q[i] <= x < q[i + 1])
-        for i in range(k + 1, 5):
-            pos[i] += 1.0
-        p = self.p / 100.0
-        inc = (0.0, p / 2, p, (1 + p) / 2, 1.0)
-        for i in range(5):
-            want[i] += inc[i]
-        # nudge interior markers toward their desired positions
-        for i in range(1, 4):
-            d = want[i] - pos[i]
-            if (d >= 1.0 and pos[i + 1] - pos[i] > 1.0) or \
-               (d <= -1.0 and pos[i - 1] - pos[i] < -1.0):
-                d = 1.0 if d > 0 else -1.0
-                qi = self._parabolic(i, d)
-                if q[i - 1] < qi < q[i + 1]:
-                    q[i] = qi
-                else:               # parabolic fit left the bracket
-                    q[i] = q[i] + d * (q[i + int(d)] - q[i]) / (
-                        pos[i + int(d)] - pos[i]
-                    )
-                pos[i] += d
-
-    def _parabolic(self, i: int, d: float) -> float:
-        q, n = self._q, self._pos
-        return q[i] + d / (n[i + 1] - n[i - 1]) * (
-            (n[i] - n[i - 1] + d) * (q[i + 1] - q[i]) / (n[i + 1] - n[i])
-            + (n[i + 1] - n[i] - d) * (q[i] - q[i - 1]) / (n[i] - n[i - 1])
-        )
-
-    @property
-    def value(self) -> float:
-        if self.n == 0:
-            return 0.0
-        if self.n <= 5:
-            return float(np.percentile(np.asarray(self._q), self.p))
-        return self._q[2]
-
-
-class LiveTelemetry:
-    """Incremental metrics publisher in server-sent-events framing.
-
-    Benchmarks run their measurement window in chunks (``platform.run
-    (until=t_k)`` checkpoints driven from *outside* the loop — never as
-    in-loop daemon events, which would consume sequence numbers and
-    break the byte-identity contract) and publish one snapshot per
-    checkpoint:
-
-        event: <stream>
-        data: {"t": ..., "p50_ttft_ms": ..., "committed_mb": ...}
-
-    The wire format is the standard ``text/event-stream`` one, so the
-    emitted file replays through any SSE consumer (or plain ``grep
-    '^data:' | jq``). Payload keys are sorted and floats rounded to six
-    significant digits, so a telemetry stream from a deterministic run
-    is itself deterministic."""
-
-    def __init__(self, sink: IO[str], stream: str = "telemetry"):
-        self.sink = sink
-        self.stream = stream
-        self.events = 0
-
-    @classmethod
-    def from_env(cls, var: str, stream: str = "telemetry"
-                 ) -> "Optional[LiveTelemetry]":
-        """A publisher per the env knob ``var``: unset/empty -> None
-        (telemetry off, the default); ``-`` -> stderr; anything else is
-        a path to (over)write."""
-        dest = os.environ.get(var, "")
-        if not dest:
-            return None
-        if dest == "-":
-            return cls(sys.stderr, stream=stream)
-        d = os.path.dirname(dest)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        return cls(open(dest, "w"), stream=stream)
-
-    @staticmethod
-    def _round(v):
-        if isinstance(v, float):
-            return float(f"{v:.6g}")
-        return v
-
-    def emit(self, payload: Dict[str, object]) -> None:
-        body = json.dumps({k: self._round(v) for k, v in payload.items()},
-                          sort_keys=True)
-        self.sink.write(f"event: {self.stream}\ndata: {body}\n\n")
-        self.sink.flush()
-        self.events += 1
-
-    def close(self) -> None:
-        if self.sink not in (sys.stdout, sys.stderr):
-            self.sink.close()
-
-
-# ===========================================================================
-# Simulator wall-clock throughput (the BENCH_simperf.json trajectory)
-# ===========================================================================
-@dataclass
-class ThroughputStats:
-    """Events processed per wall-clock second for one simulator segment
-    (trace events injected vs. real seconds spent in the event loop)."""
-
-    name: str
-    events: int = 0
-    wall_s: float = 0.0
-
-    @property
-    def events_per_sec(self) -> float:
-        return self.events / self.wall_s if self.wall_s > 0 else 0.0
-
-    def row(self) -> Dict[str, float]:
-        return {
-            "name": self.name,
-            "events": self.events,
-            "wall_s": self.wall_s,
-            "events_per_sec": self.events_per_sec,
         }
 
 
@@ -364,3 +226,263 @@ class TransferStats:
             "transfer_mb": self.bytes_total / 1024**2,
             "links": len(self.links),
         }
+
+
+
+
+# ===========================================================================
+# Spans inside the port, on the profiler's clock
+# ===========================================================================
+PREFIX = "repro_torch."
+_OFF = contextlib.nullcontext()
+
+
+class _DeviceClock:
+    """Device seconds by span name. A pair of CUDA events waits in ``pending`` and is
+    resolved once its end has completed (events on one stream complete in order, so
+    the oldest is polled first): when ``PENDING`` pairs wait, or when the counts are
+    read. Resolved events are recorded again, but for an end that a later pair starts
+    at (``shared``), which waits for that pair. With no card a point is a host clock
+    read."""
+
+    PENDING = 4096
+
+    def __init__(self) -> None:
+        self.seconds: Dict[str, float] = {}
+        self.pending: collections.deque = collections.deque()
+        self.free: List[torch.cuda.Event] = []
+        self.streams: Dict[tuple, torch.cuda.Stream] = {}
+        self.cuda: Optional[bool] = None
+        self.lock = threading.Lock()
+
+    def mark(self):
+        """A point on the current stream: None while a CUDA graph is being captured."""
+        if self.cuda is None:
+            self.cuda = torch.cuda.is_available()
+        if not self.cuda:
+            return time.perf_counter()  # det-lint: waive[wall-clock] reason=tracing; a CPU run's stage time is measured, not modeled
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        return self._event()
+
+    def again(self, start):
+        """A later point of ``start``'s kind, with no second capture check (None where
+        ``start`` is None)."""
+        if start is None:
+            return None
+        if isinstance(start, float):
+            return time.perf_counter()  # det-lint: waive[wall-clock] reason=tracing; a CPU run's stage time is measured, not modeled
+        return self._event()
+
+    def _event(self) -> torch.cuda.Event:
+        # the current stream's object, kept: ``torch.cuda.current_stream()`` builds a
+        # new one each call, several µs of a span's cost
+        key = torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice())
+        stream = self.streams.get(key)
+        if stream is None:
+            stream = self.streams[key] = torch.cuda.Stream(stream_id=key[0], device_index=key[1],
+                                                           device_type=key[2])
+        try:
+            ev = self.free.pop()
+        except IndexError:
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def add(self, name: str, start, end, shared: bool = False) -> None:
+        if start is None or end is None:
+            return
+        with self.lock:
+            if isinstance(start, float):
+                self.seconds[name] = self.seconds.get(name, 0.0) + (end - start)
+            else:
+                self.pending.append((name, start, end, shared))
+                if len(self.pending) >= self.PENDING:
+                    self.resolve(wait=False)
+
+    def resolve(self, wait: bool) -> None:
+        while self.pending:
+            name, start, end, shared = self.pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self.pending.popleft()
+            self.seconds[name] = self.seconds.get(name, 0.0) + start.elapsed_time(end) / 1e3
+            self.free.append(start)
+            if not shared:
+                self.free.append(end)
+
+
+_clock = _DeviceClock()
+_gc_open: List[_RecordFunctionFast] = []
+_gc_hooked = False
+
+
+def _on_gc(phase: str, info) -> None:
+    if phase == "start":
+        if _profiler._is_profiler_enabled:
+            rf = _RecordFunctionFast(PREFIX + "python.gc")
+            rf.__enter__()
+            _gc_open.append(rf)
+    elif _gc_open:
+        _gc_open.pop().__exit__(None, None, None)
+
+
+def _hook_gc() -> None:
+    global _gc_hooked
+    if not _gc_hooked:
+        gc.callbacks.append(_on_gc)
+        _gc_hooked = True
+
+
+class _Span:
+    __slots__ = ("name", "device", "_rf", "_start")
+
+    def __init__(self, name: str, device: bool):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        _hook_gc()
+        self._rf = _RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        if self.device:
+            self._start = _clock.mark()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device:
+            _clock.add(self.name, self._start, _clock.again(self._start))
+        self._rf.__exit__(*exc)
+
+
+def span(name: str, device: bool = False):
+    """The span ``repro_torch.<name>`` while tracing is on (see the module's
+    docstring); a context that does nothing while it is off."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(PREFIX + name, device)
+
+
+def device_seconds() -> Dict[str, float]:
+    """Device seconds of every device-timed span so far, by its full name (pairs
+    still pending are waited for here)."""
+    with _clock.lock:
+        _clock.resolve(wait=True)
+        return dict(_clock.seconds)
+
+
+class _Backward:
+    """The backward spans of one run of stages, one open at a time: each mark's
+    backward ends the open span and opens the next at one point of the stream."""
+    __slots__ = ("name", "start", "rf")
+
+    def __init__(self):
+        self.name = self.start = self.rf = None
+
+    def turn(self, to: Optional[str]) -> None:
+        if self.name is not None:
+            at = _clock.again(self.start)
+            _clock.add(self.name, self.start, at, shared=to is not None)
+            self.rf.__exit__(None, None, None)
+        else:
+            at = _clock.mark()
+        self.name, self.start, self.rf = to, at, None
+        if to is not None:
+            self.rf = _RecordFunctionFast(to)
+            self.rf.__enter__()
+
+
+class _Mark(torch.autograd.Function):
+    """Identity on a stage's inputs; its backward, the end of the stage's backward,
+    turns to ``to`` (the stage before's backward, or none)."""
+
+    @staticmethod
+    def forward(ctx, back, to, *xs):
+        ctx.back, ctx.to = back, to
+        ctx.set_materialize_grads(False)   # an input the stage only reads passes None on
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.back.turn(ctx.to)
+        return (None, None) + grads
+
+
+class _Open(_Mark):
+    """Identity on the last stage's outputs; its backward opens that stage's backward."""
+
+    @staticmethod
+    def forward(ctx, back, to, *ys):
+        # read back before the span opens: a checkpointed block is recomputed on that
+        # read, so its recompute falls outside the backward spans and inside the
+        # forward spans it runs again
+        ctx.save_for_backward(ys[0].new_empty(0))
+        return _Mark.forward(ctx, back, to, *ys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors
+        return _Mark.backward(ctx, *grads)
+
+
+def _needs_grad(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.requires_grad
+
+
+def _marked(fn, back, to, values):
+    """``values`` with ``fn.apply(back, to, *those that need grad)`` in their place."""
+    values = list(values)
+    idx = [i for i, v in enumerate(values) if _needs_grad(v)]
+    if idx:
+        for i, v in zip(idx, fn.apply(back, to, *(values[i] for i in idx))):
+            values[i] = v
+    return values
+
+
+class _Stages:
+    __slots__ = ("at", "prev", "back")
+
+    def __init__(self):
+        self.at = _clock.mark()   # where the next stage starts: the last one's end
+        self.prev = None          # the name of the last stage's backward span
+        self.back = None if not torch.is_grad_enabled() else _Backward()
+
+    def __call__(self, name: str, fn: Callable, *args, last: bool = False):
+        name = PREFIX + name
+        rf = _RecordFunctionFast(name)
+        rf.__enter__()
+        try:
+            # a checkpointed block's recompute runs inside the backward pass and its graph
+            # is dropped: only the mark that saves a tensor runs again there, as the
+            # checkpoint needs
+            if self.back is not None and torch._C._current_graph_task_id() == -1:
+                args = _marked(_Mark, self.back, self.prev, args)
+            out = fn(*args)
+            end = _clock.again(self.at)
+            _clock.add(name, self.at, end, shared=not last)
+            self.at, self.prev = end, name + ".backward"
+            if last and self.back is not None:
+                outs = _marked(_Open, self.back, self.prev, out if isinstance(out, tuple) else (out,))
+                out = tuple(outs) if isinstance(out, tuple) else outs[0]
+            return out
+        finally:
+            rf.__exit__(None, None, None)
+
+
+def _run(name: str, fn: Callable, *args, last: bool = False):
+    return fn(*args)
+
+
+def stages():
+    """A run of device-timed stages while tracing is on: ``run = stages()``, then
+    ``run(name, fn, *args)`` for each stage and ``run(name, fn, *args, last=True)`` for
+    the last gives ``fn(*args)`` as the span ``name``. A stage starts where the one
+    before ended, on one CUDA event. Under autograd an identity mark on each stage's
+    inputs that need grad ends the stage's backward, ``<name>.backward``, and opens the
+    stage before's; one on the last stage's outputs opens its backward. Off, ``run``
+    only calls ``fn``."""
+    if not _profiler._is_profiler_enabled:
+        return _run
+    _hook_gc()
+    return _Stages()

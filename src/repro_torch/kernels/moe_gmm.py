@@ -23,6 +23,10 @@ same formula in PyTorch and ``backward_cost`` its work. ``MoeGmmFunction`` is
 the kernel under autograd: its forward is ``moe_gmm`` (``plain`` on a CPU
 tensor), its backward ``backward`` (``plain_backward`` on a CPU tensor), each
 backward call a kernel scope of its own for the counters.
+
+Both launchers are the host spans ``kernels.moe_gmm.check`` (the input checks),
+``.alloc`` (the outputs' allocation) and ``.launch`` (the library call) while
+tracing is on (``core.tracing``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.kernels import _build
 
 __all__ = ["moe_gmm", "plain", "cost", "live_rows", "kernel_for", "tile_plan", "launches",
@@ -116,29 +121,31 @@ def moe_gmm(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor] = N
     global launches
     if xe.device.type == "meta":
         return torch.empty((xe.shape[0], xe.shape[1], we.shape[2]), dtype=xe.dtype, device="meta")
-    _build.check_inputs("moe_gmm", xe.device, xe=xe, we=we,
-                        **({} if live is None else {"live": live}))
-    _build.require(xe.dtype in _ENTRY, f"moe_gmm: dtype {xe.dtype} not supported")
-    _build.require(we.dtype == xe.dtype, "moe_gmm: we must have xe's dtype")
-    _build.require(xe.dim() == 3 and we.dim() == 3, "moe_gmm: xe [E,R,D], we [E,D,F]")
-    e, rows, d = xe.shape
-    f = we.shape[2]
-    _build.require(tuple(we.shape[:2]) == (e, d), "moe_gmm: we's [E, D] disagrees with xe")
-    _build.require(e <= 65535 and max(rows, d, f) < 2**31, "moe_gmm: too many experts or rows")
-    groups = 1
-    if live is not None:
-        _build.require(live.dtype == torch.int32 and live.dim() == 2 and live.shape[0] == e,
-                       "moe_gmm: live must be int32 [E, G]")
-        groups = live.shape[1]
-        _build.require(groups > 0 and rows % groups == 0, "moe_gmm: G must divide the rows")
-    out = torch.empty((e, rows, f), dtype=xe.dtype, device=xe.device)
-    entry = kernel_for(xe.dtype)
-    fn = getattr(_build.library("moe_gmm"), entry)
-    args = [xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
-            out.data_ptr(), e, rows, groups, d, f]
-    if xe.dtype == torch.bfloat16:
-        args += tile_plan(rows)
-    _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm")
+    with tracing.span("kernels.moe_gmm.check"):
+        _build.check_inputs("moe_gmm", xe.device, xe=xe, we=we,
+                            **({} if live is None else {"live": live}))
+        _build.require(xe.dtype in _ENTRY, f"moe_gmm: dtype {xe.dtype} not supported")
+        _build.require(we.dtype == xe.dtype, "moe_gmm: we must have xe's dtype")
+        _build.require(xe.dim() == 3 and we.dim() == 3, "moe_gmm: xe [E,R,D], we [E,D,F]")
+        e, rows, d = xe.shape
+        f = we.shape[2]
+        _build.require(tuple(we.shape[:2]) == (e, d), "moe_gmm: we's [E, D] disagrees with xe")
+        _build.require(e <= 65535 and max(rows, d, f) < 2**31, "moe_gmm: too many experts or rows")
+        groups = 1
+        if live is not None:
+            _build.require(live.dtype == torch.int32 and live.dim() == 2 and live.shape[0] == e,
+                           "moe_gmm: live must be int32 [E, G]")
+            groups = live.shape[1]
+            _build.require(groups > 0 and rows % groups == 0, "moe_gmm: G must divide the rows")
+    with tracing.span("kernels.moe_gmm.alloc"):
+        out = torch.empty((e, rows, f), dtype=xe.dtype, device=xe.device)
+    with tracing.span("kernels.moe_gmm.launch"):
+        fn = getattr(_build.library("moe_gmm"), kernel_for(xe.dtype))
+        args = [xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
+                out.data_ptr(), e, rows, groups, d, f]
+        if xe.dtype == torch.bfloat16:
+            args += tile_plan(rows)
+        _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm")
     launches += 1
     return out
 
@@ -181,32 +188,35 @@ def backward(xe: torch.Tensor, we: torch.Tensor, live: Optional[torch.Tensor],
     global backward_launches
     if xe.device.type == "meta":
         return torch.empty_like(xe), torch.empty_like(we)
-    _build.check_inputs("moe_gmm backward", xe.device, xe=xe, we=we, dout=dout,
-                        **({} if live is None else {"live": live}))
-    _build.require(xe.dtype in _ENTRY and we.dtype == xe.dtype and dout.dtype == xe.dtype,
-                   f"moe_gmm backward: xe, we and dout must share a dtype of {list(_ENTRY)}")
-    _build.require(xe.dim() == 3 and we.dim() == 3 and dout.dim() == 3,
-                   "moe_gmm backward: xe [E,R,D], we [E,D,F], dout [E,R,F]")
-    e, rows, d = xe.shape
-    f = we.shape[2]
-    _build.require(tuple(we.shape[:2]) == (e, d) and tuple(dout.shape) == (e, rows, f),
-                   "moe_gmm backward: we or dout disagrees with xe")
-    _build.require(e <= 65535 and max(rows, d, f) < 2**31, "moe_gmm backward: too many rows")
-    groups = 1
-    if live is not None:
-        _build.require(live.dtype == torch.int32 and live.dim() == 2 and live.shape[0] == e,
-                       "moe_gmm backward: live must be int32 [E, G]")
-        groups = live.shape[1]
-        _build.require(groups > 0 and rows % groups == 0,
-                       "moe_gmm backward: G must divide the rows")
-    dxe, dwe = torch.empty_like(xe), torch.empty_like(we)
-    fn = getattr(_build.library("moe_gmm"), _BACKWARD_ENTRY[xe.dtype])
-    args = [xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
-            dout.data_ptr(), dxe.data_ptr(), dwe.data_ptr(), e, rows, groups, d, f]
-    if xe.dtype == torch.bfloat16:
-        plan = backward_tile_plan(rows, d, f)
-        args += [plan["dx"][0], plan["dw"][0]]
-    _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm backward")
+    with tracing.span("kernels.moe_gmm.check"):
+        _build.check_inputs("moe_gmm backward", xe.device, xe=xe, we=we, dout=dout,
+                            **({} if live is None else {"live": live}))
+        _build.require(xe.dtype in _ENTRY and we.dtype == xe.dtype and dout.dtype == xe.dtype,
+                       f"moe_gmm backward: xe, we and dout must share a dtype of {list(_ENTRY)}")
+        _build.require(xe.dim() == 3 and we.dim() == 3 and dout.dim() == 3,
+                       "moe_gmm backward: xe [E,R,D], we [E,D,F], dout [E,R,F]")
+        e, rows, d = xe.shape
+        f = we.shape[2]
+        _build.require(tuple(we.shape[:2]) == (e, d) and tuple(dout.shape) == (e, rows, f),
+                       "moe_gmm backward: we or dout disagrees with xe")
+        _build.require(e <= 65535 and max(rows, d, f) < 2**31, "moe_gmm backward: too many rows")
+        groups = 1
+        if live is not None:
+            _build.require(live.dtype == torch.int32 and live.dim() == 2 and live.shape[0] == e,
+                           "moe_gmm backward: live must be int32 [E, G]")
+            groups = live.shape[1]
+            _build.require(groups > 0 and rows % groups == 0,
+                           "moe_gmm backward: G must divide the rows")
+    with tracing.span("kernels.moe_gmm.alloc"):
+        dxe, dwe = torch.empty_like(xe), torch.empty_like(we)
+    with tracing.span("kernels.moe_gmm.launch"):
+        fn = getattr(_build.library("moe_gmm"), _BACKWARD_ENTRY[xe.dtype])
+        args = [xe.data_ptr(), we.data_ptr(), None if live is None else live.data_ptr(),
+                dout.data_ptr(), dxe.data_ptr(), dwe.data_ptr(), e, rows, groups, d, f]
+        if xe.dtype == torch.bfloat16:
+            plan = backward_tile_plan(rows, d, f)
+            args += [plan["dx"][0], plan["dw"][0]]
+        _build.check(fn(*args, _build.stream(xe.device)), "moe_gmm backward")
     backward_launches += 1
     return dxe, dwe
 

@@ -14,6 +14,10 @@ j-th choice before token t+1's), and the assignments past it are dropped
     token-major order within an expert), scattered into the [E, C, D]
     buffers by rank and combined by an indexed add.
 
+Each dispatch runs four device-timed stages (``core.tracing.stages``, forward
+and backward): ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine``.
+
 Where the reference vmaps over routing groups, the port carries the group
 as a leading dim, and the expert FFN takes every group's capacity rows of an
 expert as one block of rows: ``[E, G*C, D]``. Each expert product is one
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import tracing
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import swiglu
@@ -123,12 +128,12 @@ def _groups_ffn(xe: torch.Tensor, p: Dict[str, torch.Tensor], counts: torch.Tens
     return _GroupsFirst.apply(_expert_ffn(rows, p, live), g)
 
 
-def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
-    """Capacity one-hot dispatch. x [G, T, D] -> (y [G, T, D], aux [G])."""
-    g, t, _ = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    idx, w, aux = _route(x, p["router"], k)
-
+def _dispatch_einsum(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, w_gate: torch.Tensor,
+                     cap: int):
+    """The one-hot dispatch of x [G, T, D] by ``_route``'s idx and w ->
+    (xe [G, E, C, D], combine [G, T, E, C] float32, counts [G, E, T*k])."""
+    g, t, k = idx.shape
+    e = w_gate.shape[0]
     onehot_e = one_hot(idx, e, torch.int32)                            # [G, T, k, E]
     # rank of each (token, choice) within its expert: exclusive cumsum, token-major.
     # The scan runs along the last dim ([G, E, T*k]): on CUDA a scan over an
@@ -145,26 +150,28 @@ def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, c
 
     # each expert's rows are gathered where its weights are (a DTensor's experts sharded
     # as w_gate's); x's gradient, a Partial sum over those ranks, is reduced where it arrives
-    dispatch = shard_as(dispatch.to(x.dtype), 2, p["w_gate"], 0)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, grad_placed(x))
+    dispatch = shard_as(dispatch.to(x.dtype), 2, w_gate, 0)
+    return torch.einsum("gtec,gtd->gecd", dispatch, grad_placed(x)), combine, counts
+
+
+def _moe_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
+    """Capacity one-hot dispatch. x [G, T, D] -> (y [G, T, D], aux [G])."""
+    run = tracing.stages()
+    idx, w, aux = run("moe.route", _route, x, p["router"], cfg.experts_per_token)
+    xe, combine, counts = run("moe.dispatch", _dispatch_einsum, x, idx, w, p["w_gate"], cap)
     # expert-sharded outputs are gathered before the combine contracts E (torch 2.11's
     # DTensor cannot flatten the sharded E into the product's rows)
-    ye = unshard(_groups_ffn(xe, p, counts[..., -1]), 1)
-    y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+    ye = run("moe.experts", lambda xe, n: unshard(_groups_ffn(xe, p, n), 1), xe, counts[..., -1])
+    y = run("moe.combine", lambda c, ye: torch.einsum("gtec,gecd->gtd", c.to(ye.dtype), ye),
+            combine, ye, last=True)
     return y, aux
 
 
-def _moe_sort(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
-    """Sort-based scatter dispatch. x [G, T, D] -> (y [G, T, D], aux [G]).
-
-    Assignments [G, T*k] are sorted by expert id (stably); rank-in-expert is
-    the sorted position minus the expert's start offset. Kept assignments
-    are scattered into [G, E*C, D]; dropped ones are written nowhere.
-    """
-    g, t, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    idx, w, aux = _route(x, p["router"], k)
-
+def _dispatch_sort(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, e: int, cap: int):
+    """The sorted scatter of x [G, T, D] by ``_route``'s idx and w -> (xe [G, E, C, D],
+    counts [G, E], and the kept assignments' group, slot, token and weight)."""
+    g, t, k = idx.shape
+    d = x.shape[-1]
     flat_e = idx.reshape(g, t * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se, sw = flat_e.gather(1, order), w.reshape(g, t * k).gather(1, order)
@@ -178,11 +185,31 @@ def _moe_sort(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap
     kg, ks, kt = gi[keep], (se * cap + rank)[keep], stok[keep]        # kept: group, slot, token
     xe = torch.zeros((g, e * cap, d), dtype=x.dtype, device=x.device)
     xe[kg, ks] = x[kg, kt]
-    ye = _groups_ffn(xe.reshape(g, e, cap, d), p, counts).reshape(g, e * cap, d)
+    return xe.reshape(g, e, cap, d), counts, kg, ks, kt, sw[keep]
 
-    contrib = ye[kg, ks] * sw[keep][:, None].to(ye.dtype)
-    y = torch.zeros((g, t, d), dtype=ye.dtype, device=x.device)
+
+def _combine_sort(ye: torch.Tensor, kg, ks, kt, kw: torch.Tensor, t: int) -> torch.Tensor:
+    """ye [G, E, C, D] back to tokens: y [G, T, D], each kept assignment's row times its
+    weight, added at its token."""
+    g, e, cap, d = ye.shape
+    contrib = ye.reshape(g, e * cap, d)[kg, ks] * kw[:, None].to(ye.dtype)
+    y = torch.zeros((g, t, d), dtype=ye.dtype, device=ye.device)
     y.index_put_((kg, kt), contrib, accumulate=True)
+    return y
+
+
+def _moe_sort(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, cap: int):
+    """Sort-based scatter dispatch. x [G, T, D] -> (y [G, T, D], aux [G]).
+
+    Assignments [G, T*k] are sorted by expert id (stably); rank-in-expert is
+    the sorted position minus the expert's start offset. Kept assignments
+    are scattered into [G, E*C, D]; dropped ones are written nowhere.
+    """
+    run = tracing.stages()
+    idx, w, aux = run("moe.route", _route, x, p["router"], cfg.experts_per_token)
+    xe, counts, kg, ks, kt, kw = run("moe.dispatch", _dispatch_sort, x, idx, w, cfg.num_experts, cap)
+    ye = run("moe.experts", _groups_ffn, xe, p, counts)
+    y = run("moe.combine", _combine_sort, ye, kg, ks, kt, kw, x.shape[1], last=True)
     return y, aux
 
 

@@ -7,6 +7,11 @@ the prefill logits, the request's cache is written into its slot, and then
 every slot, empty ones included, is decoded together once per token.
 Finished slots are freed immediately.
 
+Spans (``core.tracing``): ``batcher.step`` holds ``batcher.admit`` (one
+``batcher.prefill``, up to the host's read of the first token, and one
+``batcher.insert_slot`` a request), ``batcher.decode`` (the tokens' copy to the
+device until the host holds the next ones) and ``batcher.emit``.
+
 ``extras_fn(rid)`` gives a request's prefill keywords (``frames=`` for an
 encdec model, ``patches=`` for a vlm), as in the reference. A vlm's
 ``cfg.num_patches`` patches take P of the cache's slots (P is 0 for the other
@@ -24,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.models.common import tree_items
 from repro_torch.models.model import ModelApi
 
@@ -106,14 +112,16 @@ class ContinuousBatcher:
                   (self.extras_fn(req.rid) if self.extras_fn else {}).items()}
             room = self.cache_len - self.api.cfg.num_patches
             prompt = req.prompt[:room]
-            tokens = torch.tensor([prompt + [0] * (room - len(prompt))], dtype=torch.int32,
-                                  device=self.device)
-            plens = torch.tensor([len(prompt)], dtype=torch.int32, device=self.device)
-            logits, one_cache = self.api.prefill(self.params, tokens, plens, **kw)
-            first = int(torch.argmax(logits[0]))  # waits for the prefill
+            with tracing.span("batcher.prefill"):
+                tokens = torch.tensor([prompt + [0] * (room - len(prompt))], dtype=torch.int32,
+                                      device=self.device)
+                plens = torch.tensor([len(prompt)], dtype=torch.int32, device=self.device)
+                logits, one_cache = self.api.prefill(self.params, tokens, plens, **kw)
+                first = int(torch.argmax(logits[0]))  # waits for the prefill
             # det-lint: waive[wall-clock] reason=real serving; the time to first token is measured, not modeled
             req.first_token_at = time.perf_counter()
-            insert_slot(self.cache, one_cache, slot, self.batch_axes)
+            with tracing.span("batcher.insert_slot"):
+                insert_slot(self.cache, one_cache, slot, self.batch_axes)
             self.slots[slot] = req
             req.generated.append(first)
             self.cur_tokens[slot] = first
@@ -133,23 +141,27 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def step(self) -> List[Tuple[int, int]]:
         """Admit waiting requests, run one decode step, emit (rid, token)."""
-        self._admit()
-        if self.active == 0:
-            return []
-        tokens = torch.tensor(self.cur_tokens, device=self.device)
-        logits, self.cache = self.api.decode_step(self.params, self.cache, tokens)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        out = []
-        for i, req in enumerate(self.slots):
-            if req is None:
-                continue
-            tok = int(nxt[i])
-            req.generated.append(tok)
-            self.cur_tokens[i] = tok
-            out.append((req.rid, tok))
-            self._maybe_finish(i)
-        self._steps += 1
-        return out
+        with tracing.span("batcher.step"):
+            with tracing.span("batcher.admit"):
+                self._admit()
+            if self.active == 0:
+                return []
+            with tracing.span("batcher.decode"):
+                tokens = torch.tensor(self.cur_tokens, device=self.device)
+                logits, self.cache = self.api.decode_step(self.params, self.cache, tokens)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            out = []
+            with tracing.span("batcher.emit"):
+                for i, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    tok = int(nxt[i])
+                    req.generated.append(tok)
+                    self.cur_tokens[i] = tok
+                    out.append((req.rid, tok))
+                    self._maybe_finish(i)
+            self._steps += 1
+            return out
 
     def run_to_completion(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
         for _ in range(max_steps):

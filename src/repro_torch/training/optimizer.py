@@ -10,7 +10,8 @@ is plain functions on trees of tensors.
 Where the reference returns new trees, ``adamw_update`` writes the
 parameters and the moments in place, a layer of a stacked leaf at a time:
 at granite-8b's width a float32 temporary of the whole ``w_gate`` stack is
-3.8 GB per 16 layers, and the update needs several.
+3.8 GB per 16 layers, and the update needs several. The clip and the update
+are the device-timed spans ``train.clip`` and ``train.adamw`` (``core.tracing``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.models.common import tree_items, tree_map
 
 
@@ -76,23 +78,25 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float = 3e-4, b1: floa
 
     flat_g = [g for _, g in tree_items(grads)]
     # global-norm clip in float32 (a layer at a time: no float32 copy of a whole stack)
-    sq = sum(gl.float().square().sum() for g in flat_g for gl in _layers(g))
-    gnorm = torch.sqrt(sq)
-    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    with tracing.span("train.clip", device=True):
+        sq = sum(gl.float().square().sum() for g in flat_g for gl in _layers(g))
+        gnorm = torch.sqrt(sq)
+        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     t = np.float32(step + 1)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
     flat = zip((p for _, p in tree_items(params)), flat_g,
                (m for _, m in tree_items(state.mu)), (v for _, v in tree_items(state.nu)))
-    for p, g, m, v in flat:
-        wd = weight_decay if p.dim() >= 2 else 0.0   # decoupled decay on matrices only
-        for pl, gl, ml, vl in zip(_layers(p), _layers(g), _layers(m), _layers(v)):
-            gf = gl.float() * scale
-            ml.mul_(b1).add_(gf, alpha=1.0 - b1)
-            vl.mul_(b2).addcmul_(gf, gf, value=1.0 - b2)
-            upd = (ml / bc1).div_((vl / bc2).sqrt_().add_(eps))
-            pf = pl.float()
-            pl.copy_(pf - lr_t * upd.add_(pf, alpha=wd))
+    with tracing.span("train.adamw", device=True):
+        for p, g, m, v in flat:
+            wd = weight_decay if p.dim() >= 2 else 0.0   # decoupled decay on matrices only
+            for pl, gl, ml, vl in zip(_layers(p), _layers(g), _layers(m), _layers(v)):
+                gf = gl.float() * scale
+                ml.mul_(b1).add_(gf, alpha=1.0 - b1)
+                vl.mul_(b2).addcmul_(gf, gf, value=1.0 - b2)
+                upd = (ml / bc1).div_((vl / bc2).sqrt_().add_(eps))
+                pf = pl.float()
+                pl.copy_(pf - lr_t * upd.add_(pf, alpha=wd))
     metrics = {"grad_norm": gnorm, "lr": torch.tensor(lr_t, dtype=torch.float32)}
     return params, AdamWState(state.step + 1, state.mu, state.nu), metrics

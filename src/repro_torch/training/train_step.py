@@ -14,6 +14,10 @@ Counterpart of ``repro.training.train_step`` on one device.
   * then ``adamw_update``, which writes the parameters and moments in place.
 
 The metrics are 0-dim tensors: ``loss`` (float32), ``grad_norm``, ``lr``.
+Device-timed spans (``core.tracing``): ``train.step`` holds, for each micro-batch,
+``train.forward``, ``train.backward`` and ``train.grad_sum`` (the sum into the
+float32 buffers), then a ``train.grad_sum`` for the division and the gradients'
+placement, and the optimizer's ``train.clip`` and ``train.adamw``.
 ``make_train_state_specs`` gives the state's abstract tree and its
 placements on a ``DeviceMesh`` (``sharding.rules``), as the reference's gives
 its shardings.
@@ -39,6 +43,7 @@ from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config.parallel import ParallelPlan
+from repro_torch.core import tracing
 from repro_torch.models.common import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.model import ModelApi
 from repro_torch.training import compress as compress_lib
@@ -152,30 +157,38 @@ def build_train_step(api: ModelApi, plan: ParallelPlan, *, lr: float = 3e-4,
     parameters' device (``data.to_device``)."""
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with tracing.span("train.step", device=True):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         leaves = [p for _, p in tree_items(state.params)]
         for p in leaves:
             p.requires_grad_(True)
         accum = max(1, plan.grad_accum)
         loss_sum, acc = None, None
         for mb in _split_microbatches(batch, accum, plan):
-            loss = api.train_loss(state.params, mb, remat=plan.remat)
-            grads = torch.autograd.grad(loss, leaves)
-            loss = loss.detach().float()
-            if accum == 1:
-                loss_sum, acc = loss, list(grads)
-            elif acc is None:
-                loss_sum, acc = loss, [g.float() for g in grads]
-            else:
-                loss_sum = loss_sum + loss
-                for a, g in zip(acc, grads):
-                    a.add_(g)
-            del grads
-        if accum > 1:
-            loss_sum = loss_sum / accum
-            for a in acc:
-                a.div_(accum)
-        acc = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
-               for g, p in zip(acc, leaves)]
+            with tracing.span("train.forward", device=True):
+                loss = api.train_loss(state.params, mb, remat=plan.remat)
+            with tracing.span("train.backward", device=True):
+                grads = torch.autograd.grad(loss, leaves)
+            with tracing.span("train.grad_sum", device=True):
+                loss = loss.detach().float()
+                if accum == 1:
+                    loss_sum, acc = loss, list(grads)
+                elif acc is None:
+                    loss_sum, acc = loss, [g.float() for g in grads]
+                else:
+                    loss_sum = loss_sum + loss
+                    for a, g in zip(acc, grads):
+                        a.add_(g)
+                del grads
+        with tracing.span("train.grad_sum", device=True):
+            if accum > 1:
+                loss_sum = loss_sum / accum
+                for a in acc:
+                    a.div_(accum)
+            acc = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+                   for g, p in zip(acc, leaves)]
         by_path = dict(zip((path for path, _ in tree_items(state.params)), acc))
         grads = tree_map_with_path(lambda path, _: by_path[path], state.params)
         for p in leaves:
