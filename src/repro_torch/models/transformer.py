@@ -38,6 +38,8 @@ from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, default
                                       embed_tokens, swiglu)
 from repro_torch.sharding.constraints import grad_placed, merge_heads, shard_act, split_heads
 
+MOE_GROUP = 1024   # tokens a MoE layer routes together outside a decode step
+
 # The decode cache's K/V dtype whatever the model dtype, as in the reference
 # (``cache_spec`` leaves carry no dtype and ``empty_cache`` defaults to bf16).
 CACHE_DTYPE = "bfloat16"
@@ -174,8 +176,8 @@ def block_full(h, bp, cfg: ModelConfig, *, layer_window: int = 0, prompt_lens=No
 
     The cache pieces are the rotated keys and values ``k``, ``v`` (attention
     families) and the final SSM state ``ssm`` (ssm, hybrid); aux is the MoE
-    aux loss (None otherwise). MoE routes in groups of 1024 tokens, the
-    reference's default."""
+    aux loss (None otherwise). MoE routes in groups of ``MOE_GROUP`` (1024)
+    tokens, the reference's default."""
     if cfg.family == "ssm":
         y, state = ssm.apply_ssm(ops.rmsnorm(h, bp["norm"], eps=cfg.norm_eps), bp["ssm"], cfg,
                                  prompt_lens)
@@ -188,7 +190,7 @@ def block_full(h, bp, cfg: ModelConfig, *, layer_window: int = 0, prompt_lens=No
         h = _mix(h, a_out, s_out, bp, cfg)
     else:
         h = h + a_out
-    h, aux = _ffn(h, bp, cfg, group_size=1024)
+    h, aux = _ffn(h, bp, cfg, group_size=MOE_GROUP)
     return h, cache, aux
 
 
