@@ -35,9 +35,9 @@ def main() -> int:
     args = ap.parse_args()
     import torch
     from perfbench import harness
-    from perfbench.reference.model import no_tf32
+    from perfbench.reference import for_config
     cell, config = harness.cell_files(ROOT, args.workload)
-    no_tf32()
+    for_config(config).no_tf32()
     for seed in (int(s) for s in args.seeds.split(",")):
         if cell["runner"] == "serve":
             from perfbench.runners import serve

@@ -6,8 +6,10 @@ The kernel costs are a frozen copy of the program's ``kernels/*.py`` ``cost`` an
 call's own inputs: a decode call counts the (row, slot) pairs its masks allow and a
 ``moe_gmm`` call its live rows and the experts that have one, where the program's
 shape-level count takes every slot, row and expert. A call's bound is the larger of
-its bytes over the HBM bandwidth and its operations over the peak of the type its
-kernel runs them in.
+its bytes over the HBM bandwidth and its operations over the card's peak for the type
+of its operands (``Cost.op_type``; bf16 for the seven kernels here, as the cells run
+them), whatever path the kernel takes: a kernel that moves onto faster units reads
+closer to its bound, never past it.
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ HBM_BYTES_PER_S = 3.35e12
 class Cost(NamedTuple):
     flops: float
     bytes: float
+    op_type: str = "bfloat16"          # the type of the call's operands, a key of PEAK_FLOPS
 
-    def bound_s(self, op_type: str = "bfloat16") -> float:
-        return max(self.bytes / HBM_BYTES_PER_S, self.flops / PEAK_FLOPS[op_type])
+    def bound_s(self) -> float:
+        return max(self.bytes / HBM_BYTES_PER_S, self.flops / PEAK_FLOPS[self.op_type])
 
 
 def causal_pairs(s: int) -> int:

@@ -2,11 +2,14 @@
 
 A cell ``<cell>`` is ``perfbench/workloads/<cell>.json`` (its traffic, its checks'
 limits and its ``runner``), its configuration ``perfbench/configs/<config>.json``,
-and the metrics ``BENCHMARK.json`` lists for it. A per-layer metric is read by
-``perfbench/metrics/<m>.py``, the first of these that exists for the metric ``m``:
-the whole name, then its dotted prefixes from the longest (``mfu.serve`` -> ``mfu``).
-A reader has ``read(name, record) -> float | None`` and returns None where it finds
-nothing.
+and the metrics ``BENCHMARK.json`` lists for it. A configuration names its reference
+module (``"reference"``, found by ``perfbench.reference.for_config``) and may set the
+program's fields (``"program"``, applied by ``perfbench.program.model_config``); a
+kernel is counted by a file ``perfbench/kernels/<kernel>.py`` (``perfbench.tracing``).
+A per-layer metric is read by ``perfbench/metrics/<m>.py``, the first of these that
+exists for the metric ``m``: the whole name, then its dotted prefixes from the longest
+(``mfu.serve`` -> ``mfu``). A reader has ``read(name, record) -> float | None`` and
+returns None where it finds nothing.
 """
 from __future__ import annotations
 

@@ -1,0 +1,3 @@
+"""``ssd``'s share of its roofline, read as ``roofline.py`` says (its cost and peak from
+``perfbench/kernels/ssd.py``)."""
+from perfbench.metrics.roofline import read  # noqa: F401

@@ -15,6 +15,9 @@ The forward runs in float32 one layer at a time (``torch.backends`` TF32 off, wh
 ``no_tf32`` sets); ``quant`` names the control's lower precision (``"fp8"``: every
 matrix product's operands rounded to float8 e4m3, weights by tensor, activations by
 row), ``None`` is the reference itself.
+
+This is the module a configuration file names by default (``perfbench.reference``
+lists what a module gives); its model arithmetic is ``perfbench.costs``'s.
 """
 from __future__ import annotations
 
@@ -26,7 +29,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from perfbench import costs
+
 Path = Tuple[str, ...]
+
+# the configuration keys a cell at smoke size takes, by family
+SMOKE = {
+    "dense": dict(num_hidden_layers=2, hidden_size=64, intermediate_size=160, num_attention_heads=8,
+                  num_key_value_heads=2, head_dim=8, vocab_size=256),
+    "moe": dict(num_hidden_layers=2, hidden_size=64, intermediate_size=32, num_attention_heads=4,
+                num_key_value_heads=4, head_dim=16, vocab_size=256, num_experts=8,
+                num_experts_per_tok=2),
+}
 
 
 @dataclass(frozen=True)
@@ -105,7 +119,17 @@ def leaf_seed(seed: int, index: int) -> int:
 
 def make_leaf(a: Arch, seed: int, path: Path, device) -> torch.Tensor:
     """Leaf ``path`` as ``make_weights`` draws it: one generator call, in its dtype."""
-    for i, (p, shape, dtype, init) in enumerate(weight_spec(a)):
+    return draw_leaf(weight_spec(a), seed, path, device)
+
+
+def make_weights(a: Arch, seed: int, device) -> Dict:
+    """The nested parameter tree, every leaf drawn on ``device`` from ``seed``."""
+    return draw_weights(weight_spec(a), seed, device)
+
+
+def draw_leaf(spec, seed: int, path: Path, device) -> torch.Tensor:
+    """Leaf ``path`` of a ``weight_spec`` list, drawn from its own generator."""
+    for i, (p, shape, dtype, init) in enumerate(spec):
         if p == path:
             g = torch.Generator(device=device).manual_seed(leaf_seed(seed, i))
             t = torch.randn(shape, generator=g, device=device, dtype=dtype)
@@ -115,14 +139,14 @@ def make_leaf(a: Arch, seed: int, path: Path, device) -> torch.Tensor:
     raise KeyError(path)
 
 
-def make_weights(a: Arch, seed: int, device) -> Dict:
-    """The nested parameter tree, every leaf drawn on ``device`` from ``seed``."""
+def draw_weights(spec, seed: int, device) -> Dict:
+    """The nested tree of every leaf of a ``weight_spec`` list, drawn on ``device``."""
     tree: Dict = {}
-    for path, *_ in weight_spec(a):
+    for path, *_ in spec:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = make_leaf(a, seed, path, device)
+        node[path[-1]] = draw_leaf(spec, seed, path, device)
     return tree
 
 
@@ -351,3 +375,17 @@ def next_token_logits(params: Dict, tokens: torch.Tensor, rows: torch.Tensor, a:
     """tokens [S] of one sequence -> the logits [len(rows), V] at positions ``rows``."""
     h, _ = hidden(params, tokens[None], a, quant)
     return mm(h[0, rows.long()], head_weight(params, a).float(), quant)
+
+
+# ---------------------------------------------------------------------------
+# Model arithmetic
+# ---------------------------------------------------------------------------
+prefill_flops = costs.prefill_flops
+decode_flops = costs.decode_flops
+train_flops = costs.train_flops
+
+
+def cache_bytes(config: dict, cell: dict) -> int:
+    """The bytes of the slot cache (K and V, bf16, every layer) the batcher reserves."""
+    return (2 * 2 * cell["slots"] * cell["cache_len"] * int(config["num_hidden_layers"])
+            * int(config["num_key_value_heads"]) * int(config["head_dim"]))

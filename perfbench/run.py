@@ -45,8 +45,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     torch.cuda.set_device(0)
-    from perfbench.reference.model import no_tf32
-    no_tf32()
+    from perfbench.reference import for_config
+    for_config(config).no_tf32()
     runner = __import__(f"perfbench.runners.{cell['runner']}", fromlist=["run"])
     outcome = runner.run(cell, config, args.seed, args.seconds, bool(args.trace), "cuda",
                          t_process)

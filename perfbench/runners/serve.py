@@ -26,9 +26,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from perfbench import costs, program, stats
+from perfbench import program, stats
 from perfbench.harness import Check, Outcome, Record
-from perfbench.reference import model as ref
+from perfbench.reference import for_config
 from perfbench.tracing import KernelCalls, profiled, profiled_warm
 from perfbench.traffic import generator
 
@@ -45,10 +45,12 @@ class Spans:
     """The benchmark's wrappers on its own ``api``'s ``prefill`` and ``decode_step``:
     each prefill's start (the queue waits are matched to them FIFO) and its prompt
     tokens against the positions it was handed; while ``on``, the calls' times up to
-    the device's synchronize and the prefilled prompts' model FLOPs."""
+    the device's synchronize and the prefilled prompts' model FLOPs (the configuration's
+    reference module's ``prefill_flops``)."""
 
     def __init__(self, api, config: dict):
         self.api, self.config, self.on = api, config, False
+        self.flops = for_config(config).prefill_flops
         self.prefill_starts: List[float] = []
         self.positions = self.prompt_tokens = 0
         self.spans: Dict[str, list] = {"prefill": [], "decode_step": []}
@@ -69,7 +71,7 @@ class Spans:
         self.prompt_tokens += n
         if self.on:
             self.spans["prefill"].append((t0, t1))
-            self.prefill_flops += sum(costs.prefill_flops(self.config, int(x)) for x in plens.tolist())
+            self.prefill_flops += sum(self.flops(self.config, int(x)) for x in plens.tolist())
         return out
 
     def decode_step(self, p, c, t):
@@ -89,6 +91,7 @@ def run(cell: dict, config: dict, seed: int, seconds: float, trace: bool, device
     from repro_torch.serving.batching import ContinuousBatcher, Request
 
     t_build = clock()
+    ref = for_config(config)
     api, params = program.build(config, seed, device)
     spans = Spans(api, config)
     batcher = ContinuousBatcher(spans.wrapped() if trace else api, params,
@@ -163,7 +166,7 @@ def run(cell: dict, config: dict, seed: int, seconds: float, trace: bool, device
                 times[rid].append(t)
                 if spans.on:
                     r = by_rid[rid]
-                    decode_flops[0] += costs.decode_flops(config, len(r.prompt) + len(r.generated) - 1)
+                    decode_flops[0] += ref.decode_flops(config, len(r.prompt) + len(r.generated) - 1)
             in_flight[:] = [r for r in in_flight if not r.done]
 
     if trace:
@@ -256,8 +259,8 @@ def run(cell: dict, config: dict, seed: int, seconds: float, trace: bool, device
         f"check {clock() - t_check:.2f} s over {sum(len(g) for _, g in served)} served tokens")
     log(f"in the window: {e2e['active_mean']:.1f} of {cell['slots']} slots in use, "
         f"{100 * e2e['live_cache_share']:.1f}% of the cache's positions live "
-        f"({cell['slots']} x {cell['cache_len']}, {_cache_bytes(config, cell) / 1e9:.2f} GB reserved); "
-        f"waiting at most {e2e['waiting_max']}, {waiting_at_close} at the close")
+        f"({cell['slots']} x {cell['cache_len']}, {ref.cache_bytes(config, cell) / 1e9:.2f} GB "
+        f"reserved); waiting at most {e2e['waiting_max']}, {waiting_at_close} at the close")
     if loop == "open":
         log(f"in the window: ttft p90 {e2e['ttft_p90_ms']!r} ms, tpot p90 {e2e['tpot_p90_ms']!r} ms")
     return Outcome(e2e, record, checks, attempted, failed, int(peak), served)
@@ -276,12 +279,6 @@ def _live_positions(requests: list, times: Dict[int, List[float]], at: List[floa
     return total / max(1, len(at))
 
 
-def _cache_bytes(config: dict, cell: dict) -> int:
-    """The bytes of the slot cache (K and V, bf16) the batcher reserves."""
-    return (2 * 2 * cell["slots"] * cell["cache_len"] * int(config["num_hidden_layers"])
-            * int(config["num_key_value_heads"]) * int(config["head_dim"]))
-
-
 def _sample(finished: list, k: int, seed: int) -> list:
     """The longest finished request (prompt and served tokens) and k - 1 more drawn
     from the seed."""
@@ -298,7 +295,9 @@ def token_gaps(config: dict, seed: int, served, device, quant: Optional[str] = N
                params=None) -> List[np.ndarray]:
     """For each (prompt, served tokens): the reference's (float32) best logit minus its
     logit of each served token. With ``quant`` the served tokens are instead the ones
-    the reference in that precision puts first (the control)."""
+    the reference in that precision puts first (the control). The reference is the
+    configuration's own module."""
+    ref = for_config(config)
     a = ref.Arch.from_config(config)
     ref.no_tf32()
     params = params if params is not None else ref.make_weights(a, seed, device)

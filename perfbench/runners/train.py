@@ -28,9 +28,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from perfbench import costs, program, stats
+from perfbench import program, stats
 from perfbench.harness import Check, Outcome, Record
-from perfbench.reference import model as ref
+from perfbench.reference import for_config
 from perfbench.tracing import KernelCalls, profiled, profiled_warm
 from perfbench.traffic import generator
 
@@ -79,6 +79,7 @@ def program_steps(cell: dict, config: dict, seed: int, seconds: float, trace: bo
         step = step_hook(step)
     state = TrainState(params=params, opt=adamw_init(params), residual=None)
     feed = generator.train_batches(cell, int(config["vocab_size"]), seed, device)
+    ref = for_config(config)
     a = ref.Arch.from_config(config)
 
     def one(state):
@@ -95,9 +96,9 @@ def program_steps(cell: dict, config: dict, seed: int, seconds: float, trace: bo
         state, loss, _ = one(state)
         losses.append(loss)
         if i == 0:   # the first moment after one step: (1 - b1) x the gradient it got
-            first_grad = program.layer_norms(state.opt.mu, lambda t: t / 0.1)
+            first_grad = program.layer_norms(ref, state.opt.mu, lambda t: t / 0.1)
         if i == k - 1:
-            change = _change_norms(list(ref.leaves(state.params)), a, seed, device)
+            change = _change_norms(ref, list(ref.leaves(state.params)), a, seed, device)
 
     if trace:
         profiled_warm()
@@ -130,7 +131,7 @@ def program_steps(cell: dict, config: dict, seed: int, seconds: float, trace: bo
         record.device = traces[0]
         record.kernel_costs = calls.costs()
         record.spans = {"train_step": list(window)}
-        record.counters = {"train_step_flops": costs.train_flops(config, cell["batch"], cell["seq"])}
+        record.counters = {"train_step_flops": ref.train_flops(config, cell["batch"], cell["seq"])}
         window += traced
     else:
         state, window = drive(state, close)
@@ -149,10 +150,10 @@ def program_steps(cell: dict, config: dict, seed: int, seconds: float, trace: bo
         len(window), failed, int(peak)
 
 
-def _change_norms(named, a: ref.Arch, seed: int, device) -> Dict[str, float]:
+def _change_norms(ref, named, a, seed: int, device) -> Dict[str, float]:
     """Each leaf's (by layer) norm of its change from the weights it started from,
-    drawn again leaf by leaf. ``named``: (stacked path, a tensor or the list of its
-    layers)."""
+    drawn again leaf by leaf by the reference module ``ref``. ``named``: (stacked path,
+    a tensor or the list of its layers)."""
     out = {}
     for path, p in named:
         p0 = ref.make_leaf(a, seed, path, device)
@@ -170,7 +171,9 @@ def _change_norms(named, a: ref.Arch, seed: int, device) -> Dict[str, float]:
 def reference_steps(cell: dict, config: dict, seed: int, device, quant=None) -> dict:
     """The cell's first ``check.steps`` steps in the plain reference (``quant``: the
     control's lower precision): each step's loss, the first clipped gradient's norms
-    and the change's norms, leaf by leaf (stacked leaves by layer)."""
+    and the change's norms, leaf by leaf (stacked leaves by layer). The reference is the
+    configuration's own module."""
+    ref = for_config(config)
     a = ref.Arch.from_config(config)
     ref.no_tf32()
     opt, k, micro = cell["optimizer"], cell["check"]["steps"], cell["micro_batches"]
@@ -179,7 +182,7 @@ def reference_steps(cell: dict, config: dict, seed: int, device, quant=None) -> 
     store = {p: t.dtype for p, t in ref.leaves(stacked)}
     params = ref.split_layers(stacked, a)
     del stacked
-    names, leaves_ = _named_leaves(params)
+    names, leaves_ = _named_leaves(ref, params)
     for t in leaves_:
         t.requires_grad_(True)
     # AdamW's moments wait on the host between steps: on the card beside the float32
@@ -200,7 +203,7 @@ def reference_steps(cell: dict, config: dict, seed: int, device, quant=None) -> 
             total += float(loss.detach())
         losses.append(total / micro)
         with torch.no_grad():
-            grads = [t.grad for t in leaves_]
+            grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in leaves_]  # unused: 0
             gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
             scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
             if i == 0:
@@ -224,11 +227,11 @@ def reference_steps(cell: dict, config: dict, seed: int, device, quant=None) -> 
     layered = [(path, [by_name[f"{'/'.join(path)}/{i}"] for i in range(a.layers)]
                 if path[0] == "blocks" else by_name["/".join(path)])
                for path, *_ in ref.weight_spec(a)]
-    change = _change_norms(layered, a, seed, device)
+    change = _change_norms(ref, layered, a, seed, device)
     return {"loss": losses, "first_grad": first_grad, "change": change}
 
 
-def _named_leaves(params):
+def _named_leaves(ref, params):
     """(names as ``program.layer_norms`` gives them, leaves) of a per-layer tree."""
     names, out = [], []
     for key, val in params.items():

@@ -2,21 +2,17 @@
 import json
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+from perfbench.reference import for_config
 
-SMOKE = {
-    "dense": dict(num_hidden_layers=2, hidden_size=64, intermediate_size=160, num_attention_heads=8,
-                  num_key_value_heads=2, head_dim=8, vocab_size=256),
-    "moe": dict(num_hidden_layers=2, hidden_size=64, intermediate_size=32, num_attention_heads=4,
-                num_key_value_heads=4, head_dim=16, vocab_size=256, num_experts=8,
-                num_experts_per_tok=2),
-}
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def smoke_config(name: str) -> dict:
-    """A configuration file of the benchmark at the smoke size of its family."""
+    """A configuration file of the benchmark at the smoke size of its family, which its
+    reference module's ``SMOKE`` gives."""
     c = json.loads((ROOT / "perfbench" / "configs" / f"{name}.json").read_text())
-    c.update(SMOKE["moe" if c.get("num_experts") else "dense"])
+    ref = for_config(c)
+    c.update(ref.SMOKE[ref.Arch.from_config(c).family])
     return c
 
 

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from perfbench import program
-from perfbench.reference import model as ref
+from perfbench.reference import for_config
 from perfbench.smoke import ROOT, smoke_config
 
 
@@ -21,6 +21,7 @@ def test_training_loss_and_gradients_match_the_port(name, cpu_threads):
     from repro_torch.models.model import build
     cfg = dict(smoke_config(name), torch_dtype="float32")
     api = build(program.model_config(cfg), device="cpu")
+    ref = for_config(cfg)
     a = ref.Arch.from_config(cfg)
     w = _f32(ref.make_weights(a, 2 ** 33 + 1, "cpu"))
     rows = torch.randint(0, a.vocab, (2, 65), generator=torch.Generator().manual_seed(1))
@@ -39,6 +40,7 @@ def test_served_logits_match_the_port(cpu_threads):
     from repro_torch.serving.batching import insert_slot, _batch_axes
     cfg = dict(smoke_config("granite-8b"), torch_dtype="float32")
     api = build(program.model_config(cfg), device="cpu")
+    ref = for_config(cfg)
     a = ref.Arch.from_config(cfg)
     w = _f32(ref.make_weights(a, 77, "cpu"))
     g = torch.Generator().manual_seed(2)
@@ -67,7 +69,7 @@ def test_served_logits_match_the_port(cpu_threads):
 
 def test_the_reference_loads_nothing_of_the_program_or_jax():
     code = ("import sys; sys.path[0:0] = [%r]; import perfbench.reference.model, "
-            "perfbench.runners.train, perfbench.runners.serve; "
+            "perfbench.runners.train, perfbench.runners.serve, perfbench.smoke; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(ROOT))
     names = eval(subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                                 check=True, timeout=120).stdout)

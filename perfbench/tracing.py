@@ -8,16 +8,37 @@ call's live rows and the experts that have one) as device scalars, read once the
 traced window has closed. ``DeviceTrace`` is the profiler's raw events of the traced
 window (kernels on the card, ops on the host), kept in memory: no trace file is
 written.
+
+Besides the seven kernels built in here, a kernel is counted by a file of its own,
+``perfbench/kernels/<kernel>.py``, which gives:
+
+* ``SYMBOLS``: substrings of its device kernels' names;
+* ``WRAP``: the program's entry points to wrap, as (module, attribute) pairs;
+* ``record(*args, **kwargs) -> (sizes, counts)``: of a call's arguments, the sizes its
+  cost takes and the device scalars its inputs give (or None);
+* ``cost(sizes, counts) -> costs.Cost``: the call's work, ``counts`` read back as a list
+  (or None), with the type of its operands (``Cost.op_type``), whose peak bounds it.
+
+The built-in kernels come first, then the files in name order; a file whose symbols
+overlap (one holds the other) a built-in kernel's or an earlier file's fails when it
+is loaded, and a device kernel whose name holds a file's symbol and another kernel's
+fails when it is matched.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib
+import importlib.util
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from perfbench import costs, stats
+
+KERNELS_DIR = Path(__file__).resolve().parent / "kernels"   # the kernel files, read at each use
 
 # kernel -> substrings of its device kernels' names (the first kernel whose substring
 # a name holds takes it; the backward kernels first)
@@ -30,8 +51,49 @@ KERNEL_SYMBOLS = (("rmsnorm_backward", ("rmsnorm_bwd_",)),
                   ("moe_gmm", ("gmm_wgmma_kernel", "gmm_f32_kernel")))
 
 
+@dataclass(frozen=True)
+class KernelFile:
+    """A kernel counted by its file (``perfbench/kernels/<name>.py``)."""
+    name: str
+    symbols: Tuple[str, ...]
+    wrap: Tuple[Tuple[str, str], ...]
+    record: Callable
+    cost: Callable
+
+
+def kernel_files() -> Tuple[KernelFile, ...]:
+    """The kernels of the files in ``KERNELS_DIR``, in name order."""
+    return _load(Path(KERNELS_DIR))
+
+
+@functools.lru_cache(maxsize=None)
+def _load(kernels_dir: Path) -> Tuple[KernelFile, ...]:
+    taken = [(k, s) for k, keys in KERNEL_SYMBOLS for s in keys]
+    out = []
+    for path in sorted(kernels_dir.glob("[!_]*.py")):
+        spec = importlib.util.spec_from_file_location(f"perfbench_kernel_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kf = KernelFile(path.stem, tuple(mod.SYMBOLS), tuple(tuple(w) for w in mod.WRAP),
+                        mod.record, mod.cost)
+        for s in kf.symbols:
+            clash = [(k, t) for k, t in taken if s in t or t in s]
+            if clash:
+                raise ValueError(f"{path}: symbol {s!r} overlaps {clash[0][0]}'s {clash[0][1]!r}")
+            taken.append((kf.name, s))
+        out.append(kf)
+    return tuple(out)
+
+
 def kernel_of(symbol: str) -> Optional[str]:
-    return next((k for k, keys in KERNEL_SYMBOLS if any(s in symbol for s in keys)), None)
+    """The kernel a device kernel's name belongs to: a built-in one's, then a file's. A
+    name that holds a file's symbol and another kernel's fails, naming both."""
+    builtin = next((k for k, keys in KERNEL_SYMBOLS if any(s in symbol for s in keys)), None)
+    files = [f.name for f in kernel_files() if any(s in symbol for s in f.symbols)]
+    if files and (builtin is not None or len(files) > 1):
+        raise ValueError(f"device kernel {symbol!r} matches the kernels "
+                         f"{([builtin] if builtin else []) + files}")
+    return builtin if builtin is not None else next(iter(files), None)
 
 
 @dataclass
@@ -42,11 +104,13 @@ class Call:
 
 
 class KernelCalls:
-    """Records every kernel call between ``install`` and ``remove``."""
+    """Records every kernel call between ``install`` and ``remove``: the built-in
+    kernels', then those of the kernel files."""
 
     def __init__(self) -> None:
         self.calls: List[Call] = []
         self._saved: List[Tuple[object, str, object]] = []
+        self.files = {f.name: f for f in kernel_files()}
 
     def _patch(self, owner, name: str, wrapper) -> None:
         self._saved.append((owner, name, getattr(owner, name)))
@@ -107,6 +171,12 @@ class KernelCalls:
             wrap(fl, name, flash_call("flash_attention_backward"))
             wrap(gmm, name, gmm_call("moe_gmm_backward"))
 
+        def file_call(kf):
+            return lambda *a, **k: Call(kf.name, *kf.record(*a, **k))
+        for kf in self.files.values():
+            for module, name in kf.wrap:
+                wrap(importlib.import_module(module), name, file_call(kf))
+
     def remove(self) -> None:
         while self._saved:
             owner, name, fn = self._saved.pop()
@@ -115,12 +185,18 @@ class KernelCalls:
     def costs(self) -> Dict[str, List[costs.Cost]]:
         """Each kernel's calls' costs, the device counts read in one copy."""
         with_counts = [c for c in self.calls if c.counts is not None]
-        values = (torch.stack([c.counts for c in with_counts]).tolist() if with_counts else [])
-        read = dict(zip(map(id, with_counts), values))
+        flat = (torch.cat([c.counts.reshape(-1) for c in with_counts]).tolist() if with_counts
+                else [])
+        read, at = {}, 0
+        for c in with_counts:
+            read[id(c)] = flat[at:at + c.counts.numel()]
+            at += c.counts.numel()
         out: Dict[str, List[costs.Cost]] = {}
         for c in self.calls:
             n = read.get(id(c))
-            if c.kernel in ("rmsnorm", "rmsnorm_backward", "flash_attention",
+            if c.kernel in self.files:
+                cost = self.files[c.kernel].cost(c.sizes, n)
+            elif c.kernel in ("rmsnorm", "rmsnorm_backward", "flash_attention",
                             "flash_attention_backward"):
                 cost = getattr(costs, c.kernel)(*c.sizes)
             elif c.kernel == "decode_attention":
@@ -151,10 +227,12 @@ class DeviceTrace:
                                   self.start_ns, self.end_ns) / 1e9
 
     def kernel_seconds(self) -> Dict[str, float]:
-        """Device seconds by kernel of the program (``KERNEL_SYMBOLS``)."""
+        """Device seconds by kernel of the program (``KERNEL_SYMBOLS``, then the kernel
+        files')."""
+        of = {name: kernel_of(name) for name in {n for n, _, _ in self.kernels}}
         out: Dict[str, float] = {}
         for name, s, e in self.kernels:
-            k = kernel_of(name)
+            k = of[name]
             if k is not None:
                 out[k] = out.get(k, 0.0) + (e - s) / 1e9
         return out
